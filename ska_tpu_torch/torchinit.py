@@ -1,0 +1,43 @@
+"""The port's device choice and kernel launch counters (the counterpart
+of ska_tpu/jaxinit.py).
+
+The device is chosen explicitly: a ``device=`` argument, else the
+SKA_DEVICE environment variable, else ``cuda``. Asking for CUDA on a
+machine without a card raises; nothing carries on quietly on the CPU.
+Tests pass ``cpu``.
+
+Each hand-written kernel's wrapper keeps a plain integer that it adds
+one to where it launches its kernel, and nowhere else;
+``launch_counts`` reads them all and ``reset_launch_counts`` zeroes them.
+"""
+
+import os
+
+import torch
+
+
+def get_device(device=None) -> torch.device:
+    """Resolve ``device`` (None, a string or a torch.device) to a
+    torch.device, falling back to SKA_DEVICE and then to ``cuda``."""
+    if device is None:
+        device = os.environ.get("SKA_DEVICE") or "cuda"
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} was asked for but torch finds no CUDA "
+            "device; pass --device cpu (or SKA_DEVICE=cpu) to run on the CPU"
+        )
+    return dev
+
+
+def launch_counts() -> dict:
+    """{kernel name: launches} since the last reset_launch_counts()."""
+    from .ops import sort
+
+    return {"bitonic_sort": sort.bitonic_launches}
+
+
+def reset_launch_counts():
+    from .ops import sort
+
+    sort.bitonic_launches = 0

@@ -1,0 +1,165 @@
+"""The port's `ska build` / `ska align` end to end on the CPU:
+
+- ska_tpu_torch.api.build writes the same .skf bytes as ska_tpu.api.build
+  (the JAX pipeline) on a random cohort and on tests/data/bubble_*.fa;
+- `python -m ska_tpu_torch build` then `align --device cpu` in a
+  subprocess give the bytes of `./ska.py build` / `align`, and never
+  import jax.
+"""
+
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from ska_tpu import api as japi
+from ska_tpu.io import skf
+from ska_tpu.sampletypes import QualOpts
+from ska_tpu_torch import api as tapi
+from ska_tpu_torch.torchinit import get_device
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DATA = os.path.join(REPO, "tests", "data")
+PIN = {"SKA_NATIVE_BUILD": "0", "SKA_NATIVE_CMDS": "0", "SKA_DISTRIBUTED": "0"}
+QUAL = QualOpts(min_count=5, min_qual=20, qual_filter=2)
+
+
+@pytest.fixture(autouse=True)
+def _pin_jax_path(monkeypatch):
+    for var, val in PIN.items():
+        monkeypatch.setenv(var, val)
+
+
+def _random_cohort(tmp_path, seed=0):
+    """Related genomes of two lengths (two length groups, so batches
+    permute the columns) with SNPs, IUPAC letters, N runs, 2 records."""
+    rng = np.random.default_rng(seed)
+    alphabet = np.frombuffer(b"ACGT", np.uint8)
+    base = rng.choice(alphabet, size=3000)
+    paths = []
+    for s in range(5):
+        g = base[: 3000 if s % 2 else 1200].copy()
+        snp = rng.random(len(g)) < 0.01
+        g[snp] = rng.choice(alphabet, size=int(snp.sum()))
+        g[rng.integers(0, len(g), 3)] = ord("R")
+        a = int(rng.integers(0, len(g) - 20))
+        g[a : a + 15] = ord("N")
+        p = tmp_path / f"g{s}.fa"
+        p.write_bytes(b">chrom\n" + g[:900].tobytes() + b"\n>plasmid\n"
+                      + g[900:].tobytes() + b"\n")
+        paths.append(str(p))
+    return paths
+
+
+def _bubbles():
+    return sorted(
+        os.path.join(DATA, f) for f in os.listdir(DATA)
+        if f.startswith("bubble_s") and f.endswith(".fa")
+    )
+
+
+def _input_files(paths):
+    return [(os.path.basename(p)[:-3], p, None) for p in paths]
+
+
+@pytest.mark.parametrize("cohort,k,rc", [
+    ("random", 31, True), ("random", 41, False), ("bubbles", 17, True),
+])
+def test_api_build_skf_bytes_match_jax(tmp_path, cohort, k, rc):
+    paths = _random_cohort(tmp_path) if cohort == "random" else _bubbles()
+    files = _input_files(paths)
+    port = tapi.build(files, k, rc, QUAL, device="cpu")
+    ref = japi.build(files, k, rc, QUAL)
+    assert port.names == ref.names
+    out_p = skf.save(port, str(tmp_path / "port"))
+    out_r = skf.save(ref, str(tmp_path / "ref"))
+    with open(out_p, "rb") as a, open(out_r, "rb") as b:
+        assert a.read() == b.read()
+
+
+def test_load_array_builds_fasta_inputs(tmp_path):
+    """`align` given several FASTA files builds them with the defaults."""
+    paths = _random_cohort(tmp_path, seed=2)[:3]
+    port = tapi.load_array(paths, device="cpu")
+    ref = japi.load_array(paths)
+    assert port.k == ref.k and port.names == ref.names
+    assert np.array_equal(port.keys, ref.keys)
+    assert np.array_equal(port.variants, ref.variants)
+    assert np.array_equal(port.counts, ref.counts)
+
+
+def _run(args, cwd, **env):
+    r = subprocess.run(args, cwd=cwd, capture_output=True, timeout=600,
+                       env=dict(os.environ, **PIN, **env))
+    assert r.returncode == 0, r.stderr.decode()[-2000:]
+    return r
+
+
+def test_cli_build_align_match_ska_py_without_jax(tmp_path):
+    paths = _random_cohort(tmp_path, seed=1)
+    port = [sys.executable, "-X", "importtime", "-m", "ska_tpu_torch"]
+    ref = [sys.executable, os.path.join(REPO, "ska.py")]
+    r = _run(port + ["build", "-k", "21", "-o", str(tmp_path / "port"),
+                     "--device", "cpu", *paths], REPO)
+    imported = re.findall(r"\|\s+([\w.]+)\s*$", r.stderr.decode(), re.M)
+    assert "ska_tpu_torch.ops.sort" in imported
+    assert not [m for m in imported if m == "jax" or m.startswith("jax.")]
+    _run(port + ["align", str(tmp_path / "port.skf"), "-o",
+                 str(tmp_path / "port.aln"), "--device", "cpu"], REPO)
+    _run(ref + ["build", "-k", "21", "-o", str(tmp_path / "ref"), *paths],
+         tmp_path, JAX_PLATFORMS="cpu")
+    _run(ref + ["align", str(tmp_path / "ref.skf"), "-o",
+                str(tmp_path / "ref.aln")], tmp_path, JAX_PLATFORMS="cpu")
+    for ext in ("skf", "aln"):
+        port_bytes = (tmp_path / f"port.{ext}").read_bytes()
+        assert port_bytes == (tmp_path / f"ref.{ext}").read_bytes(), ext
+    assert port_bytes.count(b">") == 5
+
+
+def test_build_steps_are_profiler_spans(tmp_path):
+    """Each step of a build runs inside a ska:: span, which is how
+    chip_smoke.py's profile phase splits the build's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ska_tpu_torch import cli
+
+    paths = _random_cohort(tmp_path, seed=3)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        cli.main(["build", "-k", "17", "-o", str(tmp_path / "p"),
+                  "--device", "cpu", *paths])
+    spans = {e.name for e in prof.events() if e.name.startswith("ska::")}
+    steps = ("parse", "stage", "to_device", "device_pass", "to_host",
+             "union", "save")
+    assert spans == {f"ska::{s}" for s in steps}
+
+
+def test_cli_refuses_unported_commands(tmp_path):
+    r = subprocess.run(
+        [sys.executable, "-m", "ska_tpu_torch", "nk", "x.skf"],
+        cwd=REPO, capture_output=True, timeout=120,
+    )
+    assert r.returncode == 2
+    assert b"not ported" in r.stderr
+
+
+def test_device_choice(monkeypatch):
+    monkeypatch.setenv("SKA_DEVICE", "cpu")
+    assert get_device() == torch.device("cpu")
+    assert get_device("cpu") == torch.device("cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA"):
+            get_device("cuda")
+        monkeypatch.delenv("SKA_DEVICE")
+        with pytest.raises(RuntimeError, match="no CUDA"):
+            get_device()
+
+
+def test_fastq_build_raises(tmp_path):
+    fq = tmp_path / "r.fq"
+    fq.write_bytes(b"@r1\nACGTACGTACGTACGTACGT\n+\nIIIIIIIIIIIIIIIIIIII\n")
+    with pytest.raises(NotImplementedError, match="A8"):
+        tapi.build([("r", str(fq), None)], 9, True, QUAL, device="cpu")

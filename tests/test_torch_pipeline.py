@@ -1,0 +1,96 @@
+"""ska_tpu_torch.ops.pipeline.merged_build_from_packed against the JAX
+function on the same ska_tpu.sample._stage_packed inputs: ukeys[:n],
+variants4[:n], counts[:n] and n_rows exactly, for S in {1, 2, 5}, k in
+{9, 31, 33, 63}, rc on and off."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ska_tpu.io import fastx
+from ska_tpu.ops import pipeline as JP
+from ska_tpu.ops.npkeys import width_for_k
+from ska_tpu.sample import _bucket, _stage_packed
+from ska_tpu_torch.ops import pipeline as TP
+from ska_tpu_torch.ops.keys import to_numpy_keys
+
+ALPHABET = np.frombuffer(b"ACGTNRYK", np.uint8)
+P = [0.24, 0.24, 0.24, 0.24, 0.01, 0.01, 0.01, 0.01]
+
+
+@pytest.fixture(autouse=True)
+def _pin_jax_path(monkeypatch):
+    for var in ("SKA_NATIVE_BUILD", "SKA_NATIVE_CMDS", "SKA_DISTRIBUTED"):
+        monkeypatch.setenv(var, "0")
+
+
+def _cohort(S, k, seed):
+    """S related samples: one random base sequence with per-sample SNPs,
+    N runs and a second record, so rows are shared across samples."""
+    rng = np.random.default_rng(seed)
+    base = rng.choice(ALPHABET[:4], size=900)
+    batches = []
+    for _ in range(S):
+        g = base.copy()
+        snp = rng.random(len(g)) < 0.02
+        g[snp] = rng.choice(ALPHABET, size=int(snp.sum()), p=P)
+        a = int(rng.integers(0, len(g) - 10))
+        g[a : a + int(rng.integers(1, 8))] = ord("N")
+        cut = int(rng.integers(k + 5, 600))
+        recs = [g[:cut].tobytes(), g[cut:].tobytes()]
+        batches.append(fastx.build_batch(recs, [None, None]))
+    return batches
+
+
+@pytest.mark.parametrize(
+    "S,k,rc",
+    [
+        (1, 9, True), (2, 31, True), (5, 33, True), (2, 63, False),
+        (5, 9, False), (1, 63, True), (2, 33, False), (5, 31, False),
+    ],
+)
+def test_merged_build_from_packed_matches_jax(S, k, rc):
+    W = width_for_k(k)
+    batches = _cohort(S, k, seed=S * 100 + k)
+    Lp = _bucket(max(len(b.seq) for b in batches) + k + 1)
+    seq2, vb, qb, re_, has_qual = _stage_packed(batches, Lp, 0)
+    args = (k, rc, W, False, False, 1, False, has_qual)
+    want = JP.merged_build_from_packed(
+        jnp.asarray(seq2), jnp.asarray(vb), jnp.asarray(qb), jnp.asarray(re_),
+        *args,
+    )
+    got = TP.merged_build_from_packed(
+        torch.from_numpy(seq2), torch.from_numpy(vb), torch.from_numpy(qb),
+        torch.from_numpy(re_), *args,
+    )
+    n = int(np.asarray(want[3]))
+    assert n > 0 and int(got[3]) == n
+    assert np.array_equal(to_numpy_keys(got[0][:n]), np.asarray(want[0])[:n])
+    assert np.array_equal(got[1][:n].numpy(), np.asarray(want[1])[:n])
+    assert np.array_equal(got[2][:n].numpy(), np.asarray(want[2])[:n])
+    # samples share rows, and some rows miss some samples
+    if S > 1:
+        counts = got[2][:n].numpy()
+        assert counts.max() == S and counts.min() < S
+
+
+def test_fastq_and_oversized_batches_raise():
+    seq2 = torch.zeros((1, 256), dtype=torch.uint8)
+    bits = torch.zeros((1, 128), dtype=torch.uint8)
+    ends = torch.full((1, 16), 1024, dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="A8"):
+        TP.merged_build_from_packed(seq2, bits, bits, ends, 9, True, 1,
+                                    True, False, 1, False, True)
+    big = torch.zeros((1 << 11, 1 << 10), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="SKA_MAX_BATCH"):
+        TP._merged_impl(big, big.bool(), big.bool(), 9, True, 1)
+
+
+def test_unpack_variants4_matches_jax():
+    rng = np.random.default_rng(0)
+    vp = rng.integers(0, 256, size=(50, 3), dtype=np.uint8)
+    for n_cols in (5, 6):
+        assert np.array_equal(
+            TP.unpack_variants4(vp, n_cols), JP.unpack_variants4(vp, n_cols)
+        )
