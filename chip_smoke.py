@@ -7,13 +7,17 @@ Run from the root of a checkout; it needs one CUDA card and refuses to
 run without one. Four phases, and any failure ends the run with a
 non-zero exit (nothing is caught, nothing moves to the CPU):
 
-1. Build every hand-written kernel of the port from the sources in the
-   checkout.
+1. Build the port's native libraries from the sources in the checkout,
+   both at once: the radix sort kernel (nvcc) and the host library
+   (g++: the .skf codec, the batch union, the site filters).
 2. Hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes: the bitonic sort at N = 2^25 rows of (key limbs,
+   main path's shapes: the radix sort at N = 2^25 rows of (key limbs,
    int32 sample id, uint8 IUPAC set) for W=1 and W=2, on tie-heavy rows
-   with all-ones sentinels. Keys must be exact and the sets equal as
-   multisets within each (key, sample) group. Both times are printed.
+   with all-ones sentinels. Both sorts are stable, so every operand, the
+   payload included, must be equal. The kernel's and the plain version's
+   times, the bound (each operand read once and written once at the
+   card's 3.35 TB/s), the share of the bound, the launches per sort and
+   each kernel's device time in one sort (torch.profiler) are printed.
 3. The main path: `ska build` of a cohort of 21 related 2 Mb genomes
    (S. pneumoniae size; each a 1.95 Mb chromosome plus a 50 kb plasmid
    with ~0.5% SNPs, short indels, an N run and IUPAC letters, made from
@@ -36,6 +40,7 @@ line {"ok": true, "device": {...}}.
 """
 
 import argparse
+import concurrent.futures as cf
 import json
 import os
 import statistics
@@ -46,6 +51,8 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "build", "chip_smoke")
 GOLDEN = -7046029254386353131  # 0x9E3779B97F4A7C15 as int64
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, NVIDIA's data sheet
+PEAK_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 SORT_LOG2 = 25  # rows of the k=31 build's first batch: 16 genomes x 2^21
 GENOMES = 21
 GENOMES_K63 = 4
@@ -78,17 +85,6 @@ def sort_rows(torch, W, N, seed, dev):
     return tuple(limbs) + (sid, sets)
 
 
-def group_sets(torch, out, W):
-    """Sets sorted within each run of equal (limbs, sid): equal iff the
-    sets are equal as multisets per group (the sort is unstable)."""
-    first = torch.zeros_like(out[W], dtype=torch.bool)
-    first[0] = True
-    for x in out[: W + 1]:
-        first[1:] |= x[1:] != x[:-1]
-    gid = torch.cumsum(first, 0)
-    return torch.sort(gid * 256 + out[W + 1].long()).values
-
-
 def time_ms(torch, fn, reps):
     """Per-call milliseconds by CUDA events, after a synchronize."""
     out = []
@@ -104,34 +100,70 @@ def time_ms(torch, fn, reps):
     return out
 
 
+def sort_bound(W, N):
+    """Least time for one sort: each operand read once and written once
+    at the card's memory rate, against N * ceil(log2 N) key-row
+    comparisons of W+1 words at its non-tensor rate; the larger wins."""
+    t_bytes = 2 * (8 * W + 5) * N / HBM_BYTES_PER_S
+    t_ops = N * (N - 1).bit_length() * (W + 1) / PEAK_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
 def phase_sort(torch, SO, W, seed, dev):
-    ops = sort_rows(torch, W, 1 << SORT_LOG2, seed + W, dev)
+    N = 1 << SORT_LOG2
+    ops = sort_rows(torch, W, N, seed + W, dev)
+    before = SO.radix_launches
     got = SO._sort_cuda(ops, W + 1)
+    launches = SO.radix_launches - before
     want = SO._sort_plain(ops, W + 1)
     torch.cuda.synchronize()
     err = 0
-    for g, w in zip(got[: W + 1], want[: W + 1]):
+    for g, w in zip(got, want):
         err = max(err, int((g != w).sum()))
-    check(err == 0, f"bitonic W={W}: {err} keys differ from the plain sort")
-    check(torch.equal(group_sets(torch, got, W), group_sets(torch, want, W)),
-          f"bitonic W={W}: sets differ from the plain sort as multisets")
+    check(err == 0, f"radix W={W}: {err} rows differ from the plain sort")
     check(bool((got[0][-1] == -1).all()), "sentinels sort last")
+    check(launches == 2 + 8 * W, f"radix W={W}: {launches} launches per "
+          f"sort, expected {2 + 8 * W} (histogram + 1 + 8W digit passes)")
     # alternate plain, kernel, kernel, plain on one card
     kern, plain = [], []
     for _ in range(3):
         plain += time_ms(torch, lambda: SO._sort_plain(ops, W + 1), 1)
         kern += time_ms(torch, lambda: SO._sort_cuda(ops, W + 1), 2)
         plain += time_ms(torch, lambda: SO._sort_plain(ops, W + 1), 1)
+    bound, bound_by = sort_bound(W, N)
+    split = kernel_split(torch, lambda: SO._sort_cuda(ops, W + 1))
     res = {
         "max_abs_err": float(err),
         "ms": statistics.median(kern),
         "plain_ms": statistics.median(plain),
+        "bound_ms": bound,
+        "bound_by": bound_by,
+        "launches_per_sort": launches,
     }
-    log(f"phase 2: bitonic sort W={W} N=2^{SORT_LOG2}: kernel "
-        f"{res['ms']:.3f} ms, plain {res['plain_ms']:.3f} ms (median of 6 "
-        f"each; kernel runs {[round(x, 3) for x in kern]}, plain runs "
-        f"{[round(x, 3) for x in plain]}); keys exact, sets equal as multisets")
+    log(f"phase 2: radix sort W={W} N=2^{SORT_LOG2}: kernel "
+        f"{res['ms']:.3f} ms, plain {res['plain_ms']:.3f} ms, bound "
+        f"{bound:.3f} ms by {bound_by} ({100 * bound / res['ms']:.2f}% of "
+        f"the bound), {launches} launches per sort (median of 6 each; "
+        f"kernel runs {[round(x, 3) for x in kern]}, plain runs "
+        f"{[round(x, 3) for x in plain]}); every operand equal to the plain "
+        f"sort's")
+    for name, (n, ms) in split.items():
+        log(f"phase 2:   W={W} device {ms:.3f} ms in {n} launches "
+            f"({ms / n:.3f} ms each): {name}")
     return res
+
+
+def kernel_split(torch, fn):
+    """Device time of each kernel of one call of fn, by torch.profiler:
+    {kernel name: (launches, ms)}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key[:60]: (e.count, e.device_time_total / 1e3)
+            for e in prof.key_averages() if e.device_time_total > 0}
 
 
 # ---------------------------------------------------------------- phase 3
@@ -298,12 +330,16 @@ def main():
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} ({smi})")
 
-    # phase 1: the kernel library
+    # phase 1: both native libraries, built at once
     t0 = time.perf_counter()
-    so = kernels.build("bitonic_sort")
-    log(f"phase 1: built {so} in {time.perf_counter() - t0:.1f} s")
-    with open(so + ".log") as f:
-        log(f.read().strip())
+    with cf.ThreadPoolExecutor(2) as pool:
+        builds = [pool.submit(kernels.build, "radix_sort"),
+                  pool.submit(kernels.build_host)]
+        libs = [f.result() for f in builds]
+    log(f"phase 1: built {libs} in {time.perf_counter() - t0:.1f} s")
+    for so in libs:
+        with open(so + ".log") as f:
+            log(f.read().strip())
 
     # phase 2: each kernel against its plain version at the main path's shapes
     sort_res = {W: phase_sort(torch, SO, W, args.seed, dev) for W in (1, 2)}
@@ -323,17 +359,24 @@ def main():
     phase_profile(torch, cli, cohort, 31, t31)
     check("jax" not in sys.modules, "jax was imported")
 
+    w1, w2 = sort_res[1], sort_res[2]
     kernels_line = {"kernels": [{
-        "name": "bitonic_sort",
+        "name": "radix_sort",
         "route": "cuda",
-        "source": "ska_tpu_torch/csrc/bitonic_sort.cu",
+        "source": "ska_tpu_torch/csrc/radix_sort.cu",
         "replaces": "ska_tpu/ops/sort.py:178",
-        "launches": launches31["bitonic_sort"] + launches63["bitonic_sort"],
+        "launches": launches31["radix_sort"] + launches63["radix_sort"],
         "max_abs_err": max(r["max_abs_err"] for r in sort_res.values()),
-        "ms": sort_res[1]["ms"],
-        "plain_ms": sort_res[1]["plain_ms"],
-        "ms_w2": sort_res[2]["ms"],
-        "plain_ms_w2": sort_res[2]["plain_ms"],
+        "ms": w1["ms"],
+        "plain_ms": w1["plain_ms"],
+        "bound_ms": w1["bound_ms"],
+        "bound_by": w1["bound_by"],
+        "library_ms": None,
+        "launches_per_sort": w1["launches_per_sort"],
+        "ms_w2": w2["ms"],
+        "plain_ms_w2": w2["plain_ms"],
+        "bound_ms_w2": w2["bound_ms"],
+        "launches_per_sort_w2": w2["launches_per_sort"],
     }]}
     print(smi)
     print(json.dumps(kernels_line))

@@ -1,12 +1,14 @@
 """ska_tpu_torch: the PyTorch/CUDA port of ska_tpu.
 
 The JAX package ``ska_tpu`` stays the reference. This package keeps its
-module and function names, takes its jax-free host code (FASTA/FASTQ
-parsing, the .skf codec, ``SkaArray``, merging, staging helpers, the CLI
-grammar) by import, and rewrites the device code as torch ops on an
-explicit ``device``. The one TPU kernel on the build path, the bitonic
-sort of ``ska_tpu/ops/sort.py``, is a hand-written Hopper kernel here
-(``csrc/bitonic_sort.cu``, wrapped by ``ops/sort.py``).
+module and function names but imports nothing of it: it keeps its own
+copies of the host code it uses (FASTA/FASTQ parsing, the .skf codec,
+``SkaArray``, merging, staging helpers, the CLI grammar, and a C++ host
+library, ``csrc/host/``, built by g++ at first use), and rewrites the
+device code as torch ops on an explicit ``device``. The one TPU kernel
+on the build path, the bitonic sort of ``ska_tpu/ops/sort.py``, is a
+hand-written Hopper radix sort here (``csrc/radix_sort.cu``, wrapped by
+``ops/sort.py``).
 
 This slice ports ``ska build`` of a FASTA cohort and ``ska align``
 (``python -m ska_tpu_torch build|align``). The package never imports jax.

@@ -1,26 +1,27 @@
 """Mode orchestration of the port (counterpart of ska_tpu/api.py).
 
-``build`` runs the port's device build; ``align`` is the JAX package's own
-host-numpy function, re-exported unchanged.
+``build`` runs the port's device build; ``align`` is host numpy and the
+host library's row filters, a copy of the JAX package's.
 """
 
+import math
 from typing import List, Optional, Tuple
 
 import numpy as np
-from ska_tpu.api import align  # noqa: F401 - re-exported host numpy mode
-from ska_tpu.array import SkaArray
-from ska_tpu.constants import (
+from torch.profiler import record_function
+
+from .array import SkaArray
+from .constants import (
     DEFAULT_KMER,
     DEFAULT_MINCOUNT,
     DEFAULT_MINQUAL,
+    FILTER_NOCONST,
     QUAL_STRICT,
 )
-from ska_tpu.io import fastx, skf
-from ska_tpu.merge import extend_arrays
-from ska_tpu.sampletypes import QualOpts
-from torch.profiler import record_function
-
+from .io import fastx, skf
+from .merge import extend_arrays
 from .sample import build_samples_merged
+from .sampletypes import QualOpts
 
 
 def build(
@@ -61,3 +62,34 @@ def load_array(inputs: List[str], device=None) -> SkaArray:
     )
     return build(fastx.read_input_fastas(inputs), DEFAULT_KMER, True, qual,
                  device=device)
+
+
+def apply_filters(
+    arr: SkaArray,
+    min_freq: float,
+    filter_ambig_as_missing: bool,
+    filter_type: str,
+    ambig_mask: bool,
+    ignore_const_gaps: bool,
+) -> int:
+    """min_freq threshold = ceil(n * f) (generic_modes.rs:112-131)."""
+    threshold = math.ceil(arr.nsamples * min_freq)
+    return arr.filter(
+        threshold, filter_ambig_as_missing, filter_type, ambig_mask, ignore_const_gaps
+    )
+
+
+def align(
+    arr: SkaArray,
+    out_fh,
+    filter_type: str = FILTER_NOCONST,
+    ambig_mask: bool = False,
+    ignore_const_gaps: bool = False,
+    min_freq: float = 0.9,
+    filter_ambig_as_missing: bool = False,
+):
+    """`ska align` (generic_modes.rs:22-50)."""
+    apply_filters(
+        arr, min_freq, filter_ambig_as_missing, filter_type, ambig_mask, ignore_const_gaps
+    )
+    arr.write_fasta(out_fh)

@@ -1,19 +1,170 @@
 """``python -m ska_tpu_torch build|align``.
 
-The grammar is the JAX package's (ska_tpu.cli.build_parser), plus
-``--device`` (default: SKA_DEVICE, else ``cuda``), which may stand
-anywhere on the line. Other subcommands are not ported yet and are
-refused.
+The grammar is the JAX package's, whole (``build_parser``, a copy of
+ska_tpu/cli.py's mirror of the reference's clap CLI, src/cli.rs:167-426),
+plus ``--device`` (default: SKA_DEVICE, else ``cuda``), which may stand
+anywhere on the line. Subcommands that are not ported yet are refused.
 """
 
 import argparse
 import logging
 import sys
 
-from ska_tpu.cli import build_parser
-from ska_tpu.constants import DEFAULT_MINCOUNT, QUAL_FILTER_NAMES
+from .constants import (
+    DEFAULT_AMBIGMASK,
+    DEFAULT_AMBIGMISSING,
+    DEFAULT_CONSTGAPS,
+    DEFAULT_KMER,
+    DEFAULT_MAX_INDEL_KMERS,
+    DEFAULT_MAX_PATHDEPTH,
+    DEFAULT_MINCOUNT,
+    DEFAULT_MINFREQ,
+    DEFAULT_MINQUAL,
+    DEFAULT_MISSING_SKALO,
+    DEFAULT_REPEATMASK,
+    QUAL_FILTER_NAMES,
+    check_k,
+)
 
 PORTED = ("build", "align")
+
+
+def _valid_kmer(s):
+    try:
+        return check_k(int(s))
+    except ValueError as e:
+        raise argparse.ArgumentTypeError(str(e))
+
+
+def _zero_to_one(s):
+    f = float(s)
+    if not 0.0 <= f <= 1.0:
+        raise argparse.ArgumentTypeError("Frequency must be between 0 and 1 (inclusive)")
+    return f
+
+
+def _threads(s):
+    t = int(s)
+    if t < 1:
+        raise argparse.ArgumentTypeError("Threads must be one or higher")
+    return t
+
+
+def _min_count(s):
+    if s == "auto":
+        return "auto"
+    x = int(s)
+    if x < 1:
+        raise argparse.ArgumentTypeError("Minimum kmer count must be >= 1")
+    return x
+
+
+def build_parser():
+    p = argparse.ArgumentParser(
+        prog="ska",
+        description="SKA (PyTorch/CUDA port): Split K-mer Analysis, the alignment-free aligner",
+    )
+    p.add_argument("-v", "--verbose", action="store_true", help="Show progress messages")
+    # the reference (clap) accepts -v after the subcommand too; SUPPRESS
+    # keeps the subparser from clobbering a -v given before the subcommand
+    common = argparse.ArgumentParser(add_help=False)
+    common.add_argument(
+        "-v",
+        "--verbose",
+        action="store_true",
+        default=argparse.SUPPRESS,
+        help="Show progress messages",
+    )
+    sub = p.add_subparsers(dest="command", required=True)
+    _orig_add_parser = sub.add_parser
+
+    def _add_parser(*a, **kw):
+        kw.setdefault("parents", [common])
+        return _orig_add_parser(*a, **kw)
+
+    sub.add_parser = _add_parser
+
+    filt_choices = ["no-filter", "no-const", "no-ambig", "no-ambig-or-const"]
+
+    b = sub.add_parser("build", help="Create a split-kmer file from input sequences")
+    b.add_argument("seq_files", nargs="*", help="List of input FASTA files")
+    b.add_argument("-f", dest="file_list", help="File listing input files")
+    b.add_argument("-o", dest="output", required=True, help="Output prefix")
+    b.add_argument("-k", type=_valid_kmer, default=DEFAULT_KMER, help="K-mer size")
+    b.add_argument("--proportion-reads", type=_zero_to_one, default=None)
+    b.add_argument("--single-strand", action="store_true")
+    b.add_argument("--min-count", type=_min_count, default=None)
+    b.add_argument("--min-qual", type=int, default=DEFAULT_MINQUAL)
+    b.add_argument("--qual-filter", choices=list(QUAL_FILTER_NAMES), default="strict")
+    b.add_argument("--threads", type=_threads, default=None)
+
+    a = sub.add_parser("align", help="Write an unordered alignment")
+    a.add_argument("input", nargs="+", help="A .skf file, or list of .fasta files")
+    a.add_argument("-o", dest="output", default=None)
+    a.add_argument("-m", "--min-freq", type=_zero_to_one, default=DEFAULT_MINFREQ)
+    a.add_argument("--filter-ambig-as-missing", action="store_true", default=DEFAULT_AMBIGMISSING)
+    a.add_argument("--filter", choices=filt_choices, default="no-const")
+    a.add_argument("--ambig-mask", action="store_true", default=DEFAULT_AMBIGMASK)
+    a.add_argument("--no-gap-only-sites", action="store_true", default=DEFAULT_CONSTGAPS)
+    a.add_argument("--threads", type=_threads, default=None)
+
+    m = sub.add_parser("map", help="Write an ordered alignment using a reference sequence")
+    m.add_argument("reference")
+    m.add_argument("input", nargs="+")
+    m.add_argument("-o", dest="output", default=None)
+    m.add_argument("-f", "--format", choices=["vcf", "aln"], default="aln")
+    m.add_argument("--ambig-mask", action="store_true", default=DEFAULT_AMBIGMASK)
+    m.add_argument("--repeat-mask", action="store_true", default=DEFAULT_REPEATMASK)
+    m.add_argument("--threads", type=_threads, default=None)
+
+    d = sub.add_parser("distance", help="Calculate SNP distances and k-mer mismatches")
+    d.add_argument("skf_file")
+    d.add_argument("-o", dest="output", default=None)
+    d.add_argument("-m", "--min-freq", type=_zero_to_one, default=0.0)
+    d.add_argument("--allow-ambiguous", action="store_true")
+    d.add_argument("--threads", type=_threads, default=None)
+
+    g = sub.add_parser("merge", help="Combine multiple split k-mer files")
+    g.add_argument("skf_files", nargs="+")
+    g.add_argument("-o", dest="output", required=True)
+
+    de = sub.add_parser("delete", help="Remove samples from a split k-mer file")
+    de.add_argument("-s", "--skf-file", required=True)
+    de.add_argument("-o", dest="output", default=None)
+    de.add_argument("-f", dest="file_list", default=None)
+    de.add_argument("names", nargs="*")
+
+    w = sub.add_parser("weed", help="Remove k-mers from a split k-mer file")
+    w.add_argument("skf_file")
+    w.add_argument("weed_file", nargs="?", default=None)
+    w.add_argument("-o", dest="output", default=None)
+    w.add_argument("--reverse", action="store_true")
+    w.add_argument("-m", "--min-freq", type=_zero_to_one, default=DEFAULT_MINFREQ)
+    w.add_argument("--filter-ambig-as-missing", action="store_true")
+    w.add_argument("--filter", choices=filt_choices, default="no-filter")
+    w.add_argument("--ambig-mask", action="store_true")
+    w.add_argument("--no-gap-only-sites", action="store_true")
+
+    n = sub.add_parser("nk", help="Get the number of k-mers in a split k-mer file")
+    n.add_argument("skf_file")
+    n.add_argument("--full-info", action="store_true")
+
+    c = sub.add_parser("cov", help="Estimate a coverage cutoff from FASTQ k-mer counts")
+    c.add_argument("fastq_fwd")
+    c.add_argument("fastq_rev")
+    c.add_argument("-k", type=_valid_kmer, default=DEFAULT_KMER)
+    c.add_argument("--single-strand", action="store_true")
+
+    lo = sub.add_parser("lo", help="Finds 'left out' SNPs and INDELs using a graph")
+    lo.add_argument("input_skf")
+    lo.add_argument("output")
+    lo.add_argument("-r", "--reference", default=None)
+    lo.add_argument("-m", "--missing", type=float, default=DEFAULT_MISSING_SKALO)
+    lo.add_argument("-d", "--depth", type=int, default=DEFAULT_MAX_PATHDEPTH)
+    lo.add_argument("-n", "--indel-kmers", type=int, default=DEFAULT_MAX_INDEL_KMERS)
+    lo.add_argument("--threads", type=_threads, default=None)
+
+    return p
 
 
 def main(argv=None):
@@ -32,11 +183,11 @@ def main(argv=None):
         stream=sys.stderr,
     )
 
-    from ska_tpu.io import fastx, skf
-    from ska_tpu.sampletypes import QualOpts
     from torch.profiler import record_function
 
     from . import api
+    from .io import fastx, skf
+    from .sampletypes import QualOpts
 
     if args.command == "build":
         if args.min_count == "auto":

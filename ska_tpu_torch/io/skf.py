@@ -1,0 +1,76 @@
+"""`.skf` persistence: CBOR + snappy framing, byte-compatible with the
+reference's serde/ciborium/snap stack (merge_ska_array.rs:108-126,191-204);
+the port's copy of ska_tpu/io/skf.py.
+
+``save`` is one pass of the host library (csrc/host/save.cpp): field
+order and inner ndarray layout ({"v":1,"dim":[r,c],"data":[...]}) match
+serde's output, u128 keys (k > 31) are CBOR positive bignums as ciborium
+encodes them, and the snappy chunks come from the same greedy compressor
+as the JAX package's, so both packages write the same bytes.
+"""
+
+import numpy as np
+
+from ..array import SkaArray
+from ..ops import npkeys as K
+from . import cbor, native, snappy
+
+
+def save(arr: SkaArray, path: str, add_suffix: bool = True):
+    """add_suffix mirrors save_skf/delete (generic_modes.rs:270-283,200-204)."""
+    if add_suffix and not path.endswith(".skf"):
+        path = path + ".skf"
+    native.skf_save(path, arr.keys, arr.variants, arr.counts, arr.names,
+                    arr.k, arr.rc, arr.ska_version)
+    return path
+
+
+def load(path: str) -> SkaArray:
+    with open(path, "rb") as f:
+        raw = f.read()
+    obj = cbor.loads(snappy.frame_decompress(raw))
+    if not isinstance(obj, dict) or "split_kmers" not in obj:
+        raise ValueError(f"Could not read input file: {path}")
+    k = obj["k"]
+    k_bits = obj.get("k_bits", 64)
+    W = max(1, k_bits // 64)
+    sk = obj["split_kmers"]
+    if isinstance(sk, cbor.UIntArray):
+        # .lo may be uint8 (byte-narrow bulk decode); keys are u64 limbs.
+        # The decoder owns the buffer, so a dtype-matching view needs no copy.
+        lo = sk.lo if sk.lo.dtype == np.uint64 else sk.lo.astype(np.uint64)
+        if W == 1:
+            keys = lo[:, None]
+        else:
+            hi = sk.hi if sk.hi.dtype == np.uint64 else sk.hi.astype(np.uint64)
+            keys = np.stack([hi, lo], axis=-1)
+    else:
+        keys = K.from_python_ints(sk, W)
+    v = obj["variants"]
+    vdata = v["data"]
+    if isinstance(vdata, cbor.UIntArray):
+        vlo = vdata.lo
+        if vlo.dtype != np.uint8:
+            vlo = vlo.astype(np.uint8)
+        variants = vlo.reshape(v["dim"][0], v["dim"][1])
+    else:
+        variants = np.array(vdata, dtype=np.uint8).reshape(v["dim"][0], v["dim"][1])
+    vc = obj["variant_count"]
+    if isinstance(vc, cbor.UIntArray):
+        # counts are bounded by n_samples: a u64 buffer reinterprets as
+        # int64 zero-copy, and a byte-narrow (uint8) buffer is kept as is
+        counts = (vc.lo.view(np.int64) if vc.lo.dtype == np.uint64
+                  else vc.lo)
+    else:
+        counts = np.array(vc, dtype=np.int64)
+    # Row order is kept exactly as stored: the reference's alignment
+    # output follows it.
+    return SkaArray(
+        k=k,
+        rc=bool(obj["rc"]),
+        names=[str(n) for n in obj["names"]],
+        keys=keys,
+        variants=variants,
+        counts=counts,
+        ska_version=str(obj.get("ska_version", "")),
+    )

@@ -1,19 +1,30 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's native libraries.
 
-Each ``csrc/<name>.cu`` has a plain C interface and is compiled by nvcc
-for Hopper (sm_90a) into ``build/ska_tpu_torch/lib<name>.so`` at the root
-of the checkout, at first use and again whenever the source is newer than
-the library. Nothing is compiled when a module is imported, and nothing
-here falls back to another route: a missing nvcc or a failed build raises.
+Two routes, both with a plain C interface bound by ctypes:
+
+- each hand-written CUDA kernel, ``csrc/<name>.cu``, is compiled by nvcc
+  for Hopper (sm_90a) into ``build/ska_tpu_torch/lib<name>.so``;
+- the host library, ``csrc/host/*.cpp`` (the .skf codec, the batch
+  union and the site filters), is compiled by g++ into
+  ``build/ska_tpu_torch/libska_host.so``.
+
+``build/`` sits at the root of the checkout. A library is built at first
+use and again whenever a source is newer than it. Nothing is compiled
+when a module is imported, and nothing here falls back to another
+route: a missing compiler or a failed build raises. Each build writes a
+file of its own and renames it into place, so concurrent processes
+(test workers) may race to build the same library.
 """
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_PKG, "csrc")
+HOST_SRC_DIR = os.path.join(SRC_DIR, "host")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "ska_tpu_torch")
 
 NVCC_FLAGS = [
@@ -21,6 +32,7 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
+GXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-pthread", "-shared"]
 
 
 def _nvcc() -> str:
@@ -34,27 +46,53 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def build(name: str) -> str:
-    """Compile csrc/<name>.cu unless its library is up to date; returns
-    the library's path. The compiler's report (registers, shared memory,
-    spills from ptxas) is kept beside it as lib<name>.so.log."""
-    src = os.path.join(SRC_DIR, f"{name}.cu")
-    so = os.path.join(BUILD_DIR, f"lib{name}.so")
-    if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
+def _gxx() -> str:
+    found = shutil.which("g++")
+    if found:
+        return found
+    raise RuntimeError("g++ not found: the host library cannot be built")
+
+
+def _compile(compiler: str, flags, srcs, so: str) -> str:
+    """Compile srcs into so unless it is newer than all of them. The
+    compiler's report is kept beside it as <so>.log."""
+    if os.path.exists(so) and os.path.getmtime(so) >= max(
+            os.path.getmtime(s) for s in srcs):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    r = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-        capture_output=True, text=True,
-    )
+    r = subprocess.run([compiler, *flags, "-o", tmp, *srcs],
+                       capture_output=True, text=True)
     if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src}:\n{r.stdout}{r.stderr}")
+        raise RuntimeError(
+            f"{os.path.basename(compiler)} failed on {srcs}:\n"
+            f"{r.stdout}{r.stderr}")
     with open(so + ".log", "w") as f:
         f.write(r.stdout + r.stderr)
     os.replace(tmp, so)  # atomic: a concurrent loader sees old or new
     return so
 
 
+def build(name: str) -> str:
+    """Compile csrc/<name>.cu with nvcc unless its library is up to
+    date; returns the library's path. The ptxas report (registers,
+    shared memory, spills) is kept as lib<name>.so.log."""
+    src = os.path.join(SRC_DIR, f"{name}.cu")
+    return _compile(_nvcc(), NVCC_FLAGS, [src],
+                    os.path.join(BUILD_DIR, f"lib{name}.so"))
+
+
+def build_host() -> str:
+    """Compile csrc/host/*.cpp with g++ into libska_host.so unless it is
+    up to date; returns the library's path."""
+    srcs = sorted(glob.glob(os.path.join(HOST_SRC_DIR, "*.cpp")))
+    return _compile(_gxx(), GXX_FLAGS, srcs,
+                    os.path.join(BUILD_DIR, "libska_host.so"))
+
+
 def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(build(name))
+
+
+def load_host() -> ctypes.CDLL:
+    return ctypes.CDLL(build_host())

@@ -1,2 +1,2 @@
 """Device primitives of the port: packed-key ops, window extraction, the
-bitonic sort and the merged build pipeline."""
+radix sort and the merged build pipeline, and host key helpers."""

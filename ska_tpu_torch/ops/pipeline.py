@@ -3,7 +3,7 @@ of ska_tpu/ops/pipeline.py).
 
 One batch of S samples becomes the merged split k-mer array in one pass:
 extraction, then ONE global sort by (key, sample id) carrying the IUPAC
-set (the port's bitonic kernel on a card), then segment starts by
+set (the port's radix kernel on a card), then segment starts by
 cummax, the per-(key, sample) IUPAC OR by masked doubling, row ids by
 cumsum, and three scatters into the keys, the 4-bit-packed variants
 matrix and the counts. Only the FASTA branch is ported; FASTQ input
@@ -12,8 +12,8 @@ matrix and the counts. Only the FASTA branch is ported; FASTQ input
 
 import numpy as np
 import torch
-from ska_tpu.encoding import SET_TO_ASCII
 
+from ..encoding import SET_TO_ASCII
 from . import extract as X
 from . import sort as SO
 
@@ -70,8 +70,8 @@ def _merged_impl(codes, valid, rec_last, k: int, rc: bool, W: int):
     kf = res["key"].reshape(N, W)
     kf = torch.where(emit[:, None], kf, _SENT)
     sf = torch.where(emit, sets.reshape(N), 0)
-    # unstable is sound: rows with equal (key, sid) differ only in their
-    # set, and the sets of a group are ORed
+    # the sort is stable, though nothing here needs it: rows with equal
+    # (key, sid) differ only in their set, and the sets of a group are ORed
     ops = tuple(kf[:, i].contiguous() for i in range(W)) + (sid, sf)
     gres = SO.sort_ops(ops, num_keys=W + 1)
     gk = torch.stack(gres[:W], dim=-1)

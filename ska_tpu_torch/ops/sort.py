@@ -2,19 +2,20 @@
 ska_tpu/ops/sort.py).
 
 Contract, as in the JAX package: (B, L) or (L,) operands, ascending along
-the last axis by the first ``num_keys`` operands, unstable. Key operands
-are int64 limbs compared unsigned, or int32; payloads may be any integer
-or bool type.
+the last axis by the first ``num_keys`` operands. Key operands are int64
+limbs compared unsigned, or int32; payloads may be any integer or bool
+type. Both versions here are stable: equal rows keep their input order,
+so they give the same output on every operand.
 
 There is no silent route between the two versions:
 
 - a CPU tensor takes the plain version (``_sort_plain``): LSD passes of a
   stable torch.sort over the unsigned-biased keys, last key first,
   carrying a gather index;
-- a CUDA tensor launches the hand-written bitonic kernel
-  (csrc/bitonic_sort.cu), or raises on operands it does not take. It
-  takes the merged build's rows: 1 or 2 int64 limbs, then an int32 key,
-  then one uint8 payload.
+- a CUDA tensor launches the hand-written radix kernel
+  (csrc/radix_sort.cu), or raises on operands it does not take. It takes
+  the merged build's rows: 1 or 2 int64 limbs, then an int32 key, then
+  one uint8 payload; (B, L) operands are sorted row by row.
 """
 
 import torch
@@ -22,11 +23,15 @@ import torch
 from .. import kernels
 from .keys import SIGN
 
-# CUDA launches of the bitonic kernels, tile and global passes together
-# (120 for one sort of 2^25 rows: 15 tile launches and 105 global passes)
-bitonic_launches = 0
+# CUDA launches of the radix kernels, the histogram and every scatter
+# pass together (10 for one sort of the main path's rows at W=1)
+radix_launches = 0
 
-TILE_LOG = 11  # rows per tile of the tile kernel: 2^11 (csrc kTileLogMax)
+RADIX_BITS = 8
+RADIX_THREADS = 256  # threads of a block (csrc kThreads), one per bin
+RADIX_ITEMS = {1: 15, 2: 11}  # rows per thread of a scatter tile, by W
+HIST_ROWS = 4  # rows per thread per histogram step (csrc kHistRows)
+MAX_ROWS = 1 << 30  # the tile status word holds counts below 2^30
 _LIB = None
 
 
@@ -54,39 +59,20 @@ def _sort_plain(ops, num_keys: int):
     return tuple(x.gather(-1, perm) for x in ops)
 
 
-def _pad_pow2(ops, num_keys: int):
-    """Pad the last axis to a power of two (at least 2). Pads carry the
-    largest key of each key operand, all-ones limbs and INT32_MAX, so they
-    sort after the real rows (after real all-ones sentinels too, whose
-    int32 key is below INT32_MAX); payload pads are 0."""
-    L = ops[0].shape[-1]
-    Lp = max(2, 1 << (L - 1).bit_length())
-    if Lp == L:
-        return ops
-    out = []
-    for i, x in enumerate(ops):
-        if i >= num_keys:
-            fill = 0
-        elif x.dtype == torch.int64:
-            fill = -1
-        else:
-            fill = torch.iinfo(x.dtype).max
-        pad = torch.full((*x.shape[:-1], Lp - L), fill, dtype=x.dtype,
-                         device=x.device)
-        out.append(torch.cat([x, pad], dim=-1))
-    return tuple(out)
-
-
-def _bitonic_plan(n: int, tlog: int = TILE_LOG):
-    """Kernel launches of the bitonic network over rows of 2^n:
-    ("tile", mm_lo, mm_hi) runs stages mm_lo..mm_hi over their strides
-    below the tile, ("global", mm, j) one stride 2^j >= the tile."""
-    t = min(tlog, n)
-    plan = [("tile", 1, t)]
-    for mm in range(t + 1, n + 1):
-        plan += [("global", mm, j) for j in range(mm - 1, t - 1, -1)]
-        plan.append(("tile", mm, mm))
+def digit_plan(W: int):
+    """The radix kernel's digits, least significant first, as (operand,
+    shift): the 4 bytes of the int32 key (operand W, sign bit flipped),
+    then the 8 bytes of each limb, last limb first. Digit index d of the
+    kernel's histogram is entry d."""
+    plan = [(W, RADIX_BITS * b) for b in range(4)]
+    for limb in range(W - 1, -1, -1):
+        plan += [(limb, RADIX_BITS * b) for b in range(8)]
     return plan
+
+
+def tile_rows(W: int) -> int:
+    """Rows of a scatter tile (csrc kTile<W>)."""
+    return RADIX_THREADS * RADIX_ITEMS[W]
 
 
 def _lib():
@@ -94,14 +80,20 @@ def _lib():
     if _LIB is None:
         import ctypes
 
-        lib = kernels.load("bitonic_sort")
+        lib = kernels.load("radix_sort")
         p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.ska_bitonic_tile.argtypes = [i32] + [p] * 8 + [i64, i64, i32, i32,
-                                                         i32, p]
-        lib.ska_bitonic_tile.restype = i32
-        lib.ska_bitonic_global.argtypes = [i32] + [p] * 4 + [i64, i64, i32,
-                                                             i32, p]
-        lib.ska_bitonic_global.restype = i32
+        lib.ska_radix_histogram.argtypes = [i32, p, p, p, i64, p, i32, p]
+        lib.ska_radix_histogram.restype = i32
+        lib.ska_radix_scatter.argtypes = ([i32] + [p] * 8
+                                          + [i64, i32, i32, p, p, i64, p])
+        lib.ska_radix_scatter.restype = i32
+        lib.ska_radix_tile.argtypes = [i32]
+        lib.ska_radix_tile.restype = i32
+        for W in (1, 2):
+            if lib.ska_radix_tile(W) != tile_rows(W):
+                raise RuntimeError(
+                    f"radix_sort.cu tiles {lib.ska_radix_tile(W)} rows at "
+                    f"W={W}, the wrapper expects {tile_rows(W)}")
         _LIB = lib
     return _LIB
 
@@ -112,7 +104,7 @@ def _check_kernel_ops(ops, num_keys: int):
     if W not in (1, 2) or dtypes != [torch.int64] * W + [torch.int32,
                                                           torch.uint8]:
         raise TypeError(
-            "the CUDA bitonic sort takes 1 or 2 int64 key limbs, an int32 "
+            "the CUDA radix sort takes 1 or 2 int64 key limbs, an int32 "
             f"key and a uint8 payload; got num_keys={num_keys}, {dtypes}"
         )
     x0 = ops[0]
@@ -122,39 +114,75 @@ def _check_kernel_ops(ops, num_keys: int):
         if x.shape != x0.shape or x.device != x0.device:
             raise ValueError("operands must share one shape and one device")
         if not x.is_contiguous():
-            raise ValueError("the CUDA bitonic sort takes contiguous operands")
+            raise ValueError("the CUDA radix sort takes contiguous operands")
+    if x0.shape[-1] >= MAX_ROWS:
+        raise ValueError(
+            f"the CUDA radix sort takes rows of fewer than {MAX_ROWS} "
+            f"elements, got {x0.shape[-1]}")
     return W
 
 
 def _sort_cuda(ops, num_keys: int):
-    global bitonic_launches
     W = _check_kernel_ops(ops, num_keys)
-    L = ops[0].shape[-1]
-    ops = _pad_pow2(ops, num_keys)
-    Lp = ops[0].shape[-1]
-    total = ops[0].numel()
-    outs = [torch.empty_like(x) for x in ops]
+    if ops[0].dim() == 1:
+        return _radix_sort(ops, W)
+    rows = [_radix_sort(tuple(x[b] for x in ops), W)
+            for b in range(ops[0].shape[0])]
+    return tuple(torch.stack([r[i] for r in rows]) for i in range(len(ops)))
 
-    def ptrs(xs):
-        keys = [x.data_ptr() for x in xs[:W]] + [None] * (2 - W)
-        return keys + [xs[W].data_ptr(), xs[W + 1].data_ptr()]
 
+def _ptrs(xs, W):
+    keys = [x.data_ptr() for x in xs[:W]] + [None] * (2 - W)
+    return keys + [xs[W].data_ptr(), xs[W + 1].data_ptr()]
+
+
+def _radix_sort(ops, W: int):
+    """One (L,) row: the histogram launch, the trivial-digit flags read
+    back (one small copy, which waits for the histogram), then one
+    scatter launch per remaining digit between two ping-pong buffer
+    sets. Returns the buffers the last pass wrote, or the inputs
+    themselves when no digit varies."""
+    global radix_launches
+    n = ops[0].numel()
+    if n < 2:
+        return ops
     lib = _lib()
-    n = Lp.bit_length() - 1
-    t = min(TILE_LOG, n)
-    with torch.cuda.device(ops[0].device):
+    dev = ops[0].device
+    D = 4 + 8 * W
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
+        # hist[D][256] offsets[D][256] trivial[D] done
+        scratch = torch.zeros(2 * D * 256 + D + 1, dtype=torch.int32,
+                              device=dev)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        blocks = min(-(-n // (RADIX_THREADS * HIST_ROWS)), 4 * sms)
+        err = lib.ska_radix_histogram(W, *_ptrs(ops, W)[:3], n,
+                                      scratch.data_ptr(), blocks, stream)
+        if err:
+            raise RuntimeError(
+                f"radix histogram kernel launch failed: CUDA error {err}")
+        radix_launches += 1
+        trivial = scratch[2 * D * 256 : 2 * D * 256 + D].tolist()
+        passes = [(d, op, shift) for d, (op, shift) in enumerate(digit_plan(W))
+                  if not trivial[d]]
+        if not passes:
+            return ops
+        tiles = -(-n // tile_rows(W))
+        words = 1 + tiles * 256  # tile counter, then [tiles][256] status
+        status = torch.zeros(len(passes) * words, dtype=torch.int32,
+                             device=dev)
+        bufs = [tuple(torch.empty_like(x) for x in ops)
+                for _ in range(min(2, len(passes)))]
         src = ops
-        for step, a, b in _bitonic_plan(n):
-            if step == "tile":
-                err = lib.ska_bitonic_tile(W, *ptrs(src), *ptrs(outs), total,
-                                           Lp, t, a, b, stream)
-                src = outs
-            else:
-                err = lib.ska_bitonic_global(W, *ptrs(outs), total, Lp, a, b,
-                                             stream)
+        for i, (d, op, shift) in enumerate(passes):
+            dst = bufs[i % 2]
+            err = lib.ska_radix_scatter(
+                W, *_ptrs(src, W), *_ptrs(dst, W), n, op, shift,
+                scratch.data_ptr() + 4 * (D + d) * 256,
+                status.data_ptr() + 4 * i * words, tiles, stream)
             if err:
                 raise RuntimeError(
-                    f"bitonic {step} kernel launch failed: CUDA error {err}")
-            bitonic_launches += 1
-    return tuple(o[..., :L] for o in outs)
+                    f"radix scatter kernel launch failed: CUDA error {err}")
+            radix_launches += 1
+            src = dst
+    return src

@@ -34,10 +34,10 @@ def launch_counts() -> dict:
     """{kernel name: launches} since the last reset_launch_counts()."""
     from .ops import sort
 
-    return {"bitonic_sort": sort.bitonic_launches}
+    return {"radix_sort": sort.radix_launches}
 
 
 def reset_launch_counts():
     from .ops import sort
 
-    sort.bitonic_launches = 0
+    sort.radix_launches = 0

@@ -3,8 +3,8 @@
 - ska_tpu_torch.api.build writes the same .skf bytes as ska_tpu.api.build
   (the JAX pipeline) on a random cohort and on tests/data/bubble_*.fa;
 - `python -m ska_tpu_torch build` then `align --device cpu` in a
-  subprocess give the bytes of `./ska.py build` / `align`, and never
-  import jax.
+  subprocess give the bytes of `./ska.py build` / `align`, and import
+  neither jax nor ska_tpu.
 """
 
 import os
@@ -107,9 +107,12 @@ def test_cli_build_align_match_ska_py_without_jax(tmp_path):
                      "--device", "cpu", *paths], REPO)
     imported = re.findall(r"\|\s+([\w.]+)\s*$", r.stderr.decode(), re.M)
     assert "ska_tpu_torch.ops.sort" in imported
-    assert not [m for m in imported if m == "jax" or m.startswith("jax.")]
-    _run(port + ["align", str(tmp_path / "port.skf"), "-o",
-                 str(tmp_path / "port.aln"), "--device", "cpu"], REPO)
+    r = _run(port + ["align", str(tmp_path / "port.skf"), "-o",
+                     str(tmp_path / "port.aln"), "--device", "cpu"], REPO)
+    imported += re.findall(r"\|\s+([\w.]+)\s*$", r.stderr.decode(), re.M)
+    assert "ska_tpu_torch.io.skf" in imported
+    assert not [m for m in imported
+                if m in ("jax", "ska_tpu") or m.startswith(("jax.", "ska_tpu."))]
     _run(ref + ["build", "-k", "21", "-o", str(tmp_path / "ref"), *paths],
          tmp_path, JAX_PLATFORMS="cpu")
     _run(ref + ["align", str(tmp_path / "ref.skf"), "-o",
