@@ -10,6 +10,9 @@ on the build path, the bitonic sort of ``ska_tpu/ops/sort.py``, is a
 hand-written Hopper radix sort here (``csrc/radix_sort.cu``, wrapped by
 ``ops/sort.py``).
 
-This slice ports ``ska build`` of a FASTA cohort and ``ska align``
-(``python -m ska_tpu_torch build|align``). The package never imports jax.
+Ported so far: ``ska build`` of FASTA and paired FASTQ samples (count
+and quality filters, samples over the dispatch cap built in chunks,
+``--min-count auto``), ``ska align`` and ``ska cov``
+(``python -m ska_tpu_torch build|align|cov``). The package never imports
+jax.
 """

@@ -32,9 +32,10 @@ def build(
     proportion_reads: Optional[float] = None,
     device=None,
 ) -> SkaArray:
-    """`ska build` of a FASTA cohort: one device pass per batch, a host
+    """`ska build` of FASTA and/or FASTQ samples: one device pass per
+    batch (chunked passes for a sample over the dispatch cap), a host
     union across batches, then the input column order restored (batch
-    grouping by length may permute samples), as ska_tpu.api.build."""
+    grouping may permute samples), as ska_tpu.api.build."""
     batches = build_samples_merged(
         input_files, k, rc, qual, proportion_reads, device=device
     )

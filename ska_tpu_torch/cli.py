@@ -1,4 +1,4 @@
-"""``python -m ska_tpu_torch build|align``.
+"""``python -m ska_tpu_torch build|align|cov``.
 
 The grammar is the JAX package's, whole (``build_parser``, a copy of
 ska_tpu/cli.py's mirror of the reference's clap CLI, src/cli.rs:167-426),
@@ -26,7 +26,8 @@ from .constants import (
     check_k,
 )
 
-PORTED = ("build", "align")
+PORTED = ("build", "align", "cov")
+log = logging.getLogger("ska_tpu_torch")
 
 
 def _valid_kmer(s):
@@ -190,19 +191,26 @@ def main(argv=None):
     from .sampletypes import QualOpts
 
     if args.command == "build":
-        if args.min_count == "auto":
-            raise NotImplementedError(
-                "--min-count auto is not ported yet (ROADMAP A11)")
+        input_files = fastx.get_input_list(args.file_list, args.seq_files or None)
+        rc = not args.single_strand
         qual = QualOpts(
-            min_count=DEFAULT_MINCOUNT if args.min_count is None else args.min_count,
+            min_count=_resolve_min_count(args, input_files, rc, opts.device),
             min_qual=args.min_qual,
             qual_filter=QUAL_FILTER_NAMES[args.qual_filter],
         )
-        input_files = fastx.get_input_list(args.file_list, args.seq_files or None)
-        arr = api.build(input_files, args.k, not args.single_strand, qual,
-                        args.proportion_reads, device=opts.device)
+        arr = api.build(input_files, args.k, rc, qual, args.proportion_reads,
+                        device=opts.device)
         with record_function("ska::save"):
             skf.save(arr, args.output)
+    elif args.command == "cov":
+        from .coverage import CoverageHistogram
+
+        cov = CoverageHistogram(args.fastq_fwd, args.fastq_rev, args.k,
+                                not args.single_strand, args.verbose,
+                                device=opts.device)
+        cutoff = cov.fit_histogram()
+        cov.plot_hist()
+        print(f"Estimated cutoff\t{cutoff}", file=sys.stderr)
     else:
         arr = api.load_array(args.input, device=opts.device)
         fh = open(args.output, "wb") if args.output else sys.stdout.buffer
@@ -221,3 +229,26 @@ def main(argv=None):
                 fh.close()
             else:
                 fh.flush()
+
+
+def _resolve_min_count(args, input_files, rc, device) -> int:
+    """--min-count auto fits the coverage model on the first two FASTQ
+    samples' forward reads (reference io_utils.rs:175-212), as
+    ska_tpu.cli does; the fit's table goes to stdout."""
+    mc = args.min_count
+    if mc is None:
+        return DEFAULT_MINCOUNT
+    if mc != "auto":
+        return mc
+    fastqs = [t for t in input_files if t[2] is not None]
+    if len(fastqs) >= 2:
+        from .coverage import CoverageHistogram
+
+        cov = CoverageHistogram(fastqs[0][1], fastqs[1][1], args.k, rc,
+                                args.verbose, device=device)
+        out = cov.fit_histogram()
+        cov.plot_hist()
+        log.info("Using inferred minimum kmer value of %d", out)
+        return out
+    log.info("Not enough fastq files to fit mixture model, using default kmer count of 5")
+    return DEFAULT_MINCOUNT

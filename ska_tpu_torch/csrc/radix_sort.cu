@@ -9,7 +9,11 @@
 // carries the IUPAC set. Order: the int64 limbs compared as unsigned
 // 64-bit words, first limb most significant, then the int32 key compared
 // signed (its sign bit flipped gives unsigned order); the payload rides
-// along. Equal rows keep their input order.
+// along. Equal rows keep their input order. The reads build's sorts are
+// by the limbs alone: the wrapper launches no pass for the int32's
+// digits, so it rides along as payload too (the row's position, which
+// gathers wider payloads afterwards). The histogram still counts its
+// digits.
 //
 // What bounds it: device-memory bandwidth. Each scatter pass reads and
 // writes every row once, 8W+5 bytes each way, and the histogram reads the

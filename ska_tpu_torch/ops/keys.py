@@ -117,6 +117,31 @@ def equal(a, b):
     return (a == b).all(dim=-1)
 
 
+def sort_with(keys, payloads, extra_keys=()):
+    """Sort rows by key limbs (then extra_keys) carrying payloads.
+
+    keys: (N, W); extra_keys and payloads: tuples of (N,) tensors.
+    Returns (sorted_keys, sorted_extras, sorted_payloads), as the JAX
+    package's. On a card the operands must be a layout the radix kernel
+    takes: W limbs, then an int32 and a uint8 (an extra key or
+    payloads).
+
+    The JAX package's lax_sort_fast sorts by the first key alone and
+    re-sorts with the full comparator under a lax.cond only when a tie
+    hides an order: a TPU cost trick, because there the comparator's
+    keys, not the data moved, set the price. The radix sort compares all
+    keys in one go (one pass per digit that varies), so the port has no
+    such layer and calls sort_ops itself."""
+    from .sort import sort_ops
+
+    W = keys.shape[-1]
+    ops = (tuple(keys[:, i].contiguous() for i in range(W))
+           + tuple(extra_keys) + tuple(payloads))
+    res = sort_ops(ops, num_keys=W + len(extra_keys))
+    nex = len(extra_keys)
+    return torch.stack(res[:W], dim=-1), res[W : W + nex], res[W + nex :]
+
+
 def from_numpy_keys(keys: np.ndarray, device=None):
     """(n, W) uint64 numpy keys -> int64 tensor with the same bits (a
     zero-copy view when it stays on the CPU)."""

@@ -1,13 +1,24 @@
-"""Whole-batch merged FASTA build on the device (port of the merged path
-of ska_tpu/ops/pipeline.py).
+"""Device build pipelines (port of ska_tpu/ops/pipeline.py).
 
-One batch of S samples becomes the merged split k-mer array in one pass:
-extraction, then ONE global sort by (key, sample id) carrying the IUPAC
-set (the port's radix kernel on a card), then segment starts by
-cummax, the per-(key, sample) IUPAC OR by masked doubling, row ids by
-cumsum, and three scatters into the keys, the 4-bit-packed variants
-matrix and the counts. Only the FASTA branch is ported; FASTQ input
-(count filter, quality gates) is ROADMAP A8.
+- ``merged_build_from_packed`` / ``_merged_impl``: one batch of S
+  samples becomes the merged split k-mer array in one pass: extraction,
+  for reads the quality gates and the per-sample count filter, then ONE
+  global sort by (key, sample id) carrying the IUPAC set, segment starts
+  by cummax, the per-(key, sample) IUPAC OR by masked doubling, row ids
+  by cumsum, and three scatters into the keys, the 4-bit-packed variants
+  matrix and the counts.
+- ``sample_pipeline`` / ``sample_from_raw`` and ``chunk_count_pipeline``
+  / ``chunk_count_from_raw``: one chunk of a sample too large for one
+  dispatch (sample.py's chunked build); ``chunk_key_counts(_from_raw)``:
+  one chunk of chunked ``ska cov``.
+
+Every sort is ops/sort.py's ``sort_ops``, on a card the radix kernel.
+Where the JAX package sorts by whole k-mer limbs and position carrying
+wide payloads, the port sorts the limbs carrying the position (an int32)
+and a uint8 of small flags, the kernel's ``num_keys == W`` layout: the
+sort is stable, so that is the (limbs, position) order, and the
+positions then gather the wide payloads. The pipelines take an explicit
+(S, L) batch, as ops/extract.py does.
 """
 
 import numpy as np
@@ -15,32 +26,95 @@ import torch
 
 from ..encoding import SET_TO_ASCII
 from . import extract as X
-from . import sort as SO
+from . import keys as K
+from .sort import sort_ops
 
 _SENT = -1  # all-ones uint64 limb
+_SENT_NP = np.uint64(0xFFFFFFFFFFFFFFFF)
 
 
 def _seg_start_idx(first):
-    i32 = torch.arange(first.shape[0], dtype=torch.int32, device=first.device)
-    return torch.cummax(torch.where(first, i32, -1), dim=0).values
+    """Start index of each position's segment along the last axis."""
+    i32 = torch.arange(first.shape[-1], dtype=torch.int32, device=first.device)
+    return torch.cummax(torch.where(first, i32, -1), dim=-1).values
 
 
 def _seg_union(vals, ssi):
-    """OR within each sorted segment via masked doubling (log2 L passes)."""
-    L = vals.shape[0]
+    """OR within each sorted segment along the last axis, via masked
+    doubling (log2 L passes)."""
+    L = vals.shape[-1]
     i32 = torch.arange(L, dtype=torch.int32, device=vals.device)
     v = vals
     d = 1
     while d < L:
         shifted = torch.zeros_like(v)
-        shifted[d:] = v[:-d]
+        shifted[..., d:] = v[..., :-d]
         v = torch.where((i32 - d) >= ssi, v | shifted, v)
         d <<= 1
     return v
 
 
-def _merged_impl(codes, valid, rec_last, k: int, rc: bool, W: int):
-    """Whole-batch build + merge of (S, L) 2-bit codes (FASTA only).
+def _starts(keys):
+    """(S, L) bool: True at position 0 of each row and wherever a key of
+    the (S, L, W) limbs differs from the one before it."""
+    first = torch.ones(keys.shape[:2], dtype=torch.bool, device=keys.device)
+    first[:, 1:] = (keys[:, 1:] != keys[:, :-1]).any(dim=-1)
+    return first
+
+
+def _sets(res):
+    """4-bit IUPAC set of each window: its middle base, and for a
+    palindromic key the complementary base too (uint8)."""
+    mid = res["mid"]
+    return (1 << mid) | torch.where(res["pal"], 1 << (mid ^ 2), 0)
+
+
+def _pack_key_set(keys, sets, W):
+    """(key << 4) | set in W int64 limbs (key bits < 64*W - 4)."""
+    packed = K.shl(keys, 4)
+    packed[..., W - 1] |= sets.to(torch.int64)
+    return packed
+
+
+def _sort_limbs(limbs, flags=None):
+    """Stable sort of each row of (S, L, W) limbs, carrying every
+    position's index and a uint8 of flags (zeros when None): the radix
+    kernel's ``num_keys == W`` layout. Returns (sorted limbs (S, L, W),
+    positions int64 (S, L), flags (S, L))."""
+    S, L, W = limbs.shape
+    dev = limbs.device
+    pos = torch.arange(L, dtype=torch.int32, device=dev)
+    if flags is None:
+        flags = torch.zeros((S, L), dtype=torch.uint8, device=dev)
+    ops = tuple(limbs[..., i].contiguous() for i in range(W)) + (
+        pos.expand(S, L).contiguous(), flags.contiguous())
+    res = sort_ops(ops, num_keys=W)
+    return torch.stack(res[:W], dim=-1), res[W].long(), res[W + 1]
+
+
+def _gather_rows(x, pos):
+    """x (S, L, W) reordered along L by positions (S, L)."""
+    return x.gather(1, pos[..., None].expand(-1, -1, x.shape[-1]))
+
+
+def _rank_ok(swk, min_count: int):
+    """The min-count rank rule over rows sorted by (whole k-mer,
+    position): the rank of each occurrence within its whole k-mer is
+    taken in stream order; min_count 2 keeps ranks >= 2, a larger one
+    the rank equal to it (bloom_filter.rs:116-148)."""
+    i32 = torch.arange(swk.shape[1], dtype=torch.int32, device=swk.device)
+    rank = i32 - _seg_start_idx(_starts(swk)) + 1
+    return rank >= 2 if min_count == 2 else rank == min_count
+
+
+def _mid_gate(emit, qual_ok, k: int):
+    """Middle-base quality gate (ska_dict.rs:156-157)."""
+    return emit & X._shift_left_arr(qual_ok, (k - 1) // 2)
+
+
+def _merged_impl(codes, valid, qual_ok, rec_last, k: int, rc: bool, W: int,
+                 is_reads: bool, use_mid_qual: bool, min_count: int):
+    """Whole-batch build + merge of (S, L) 2-bit codes.
 
     Returns
       ukeys     (S*L, W) int64 merged keys, rows [0, n_rows) valid
@@ -60,26 +134,36 @@ def _merged_impl(codes, valid, rec_last, k: int, rc: bool, W: int):
             f"space); lower SKA_MAX_BATCH so that S*S*L <= 2^31"
         )
     dev = codes.device
-    res = X.extract_windows(codes, valid, rec_last, k, rc, W, from_codes=True)
-    emit = res["emit"].reshape(N)
-    mid = res["mid"]
-    sets = (1 << mid) | torch.where(res["pal"], 1 << (mid ^ 2), 0)  # uint8
+    want_whole = bool(is_reads and min_count > 1)
+    res = X.extract_windows(codes, valid, rec_last, k, rc, W, want_whole,
+                            from_codes=True)
+    emit = res["emit"]
+    if is_reads and use_mid_qual:
+        emit = _mid_gate(emit, qual_ok, k)
+    sets = _sets(res)
+    keys = res["key"]
+
+    if want_whole:
+        # per-sample min-count rank filter over whole k-mers: each row
+        # sorted by (whole k-mer, position), carrying set and emit
+        wkeys = torch.where(emit[..., None], res["whole"], _SENT)
+        swk, spos, flags = _sort_limbs(wkeys, sets | (emit.to(torch.uint8) << 4))
+        keys = _gather_rows(keys, spos)
+        sets = flags & 15
+        emit = _rank_ok(swk, min_count) & (flags >> 4).bool()
 
     # ---- global merge across samples: one sort by (key, sample id) ----
+    emit = emit.reshape(N)
     sid = torch.arange(S, dtype=torch.int32, device=dev).repeat_interleave(L)
-    kf = res["key"].reshape(N, W)
+    kf = keys.reshape(N, W)
     kf = torch.where(emit[:, None], kf, _SENT)
     sf = torch.where(emit, sets.reshape(N), 0)
     # the sort is stable, though nothing here needs it: rows with equal
     # (key, sid) differ only in their set, and the sets of a group are ORed
-    ops = tuple(kf[:, i].contiguous() for i in range(W)) + (sid, sf)
-    gres = SO.sort_ops(ops, num_keys=W + 1)
-    gk = torch.stack(gres[:W], dim=-1)
-    gsid, gsets = gres[W], gres[W + 1]
+    gk, (gsid,), (gsets,) = K.sort_with(kf, (sf,), extra_keys=(sid,))
 
     live = (gk != _SENT).any(dim=-1)
-    diff_key = torch.ones(N, dtype=torch.bool, device=dev)
-    diff_key[1:] = (gk[1:] != gk[:-1]).any(dim=-1)
+    diff_key = _starts(gk[None])[0]
     first_pair = diff_key.clone()
     first_pair[1:] |= gsid[1:] != gsid[:-1]
 
@@ -116,7 +200,7 @@ def _merged_impl(codes, valid, rec_last, k: int, rc: bool, W: int):
 def unpack_codes(seq2):
     """(S, ceil(L/4)) uint8 of 2-bit codes (4/byte, first base in bits
     7-6) -> (S, 4*ceil(L/4)) uint8 code array; the inverse of
-    ska_tpu.sample._stage_packed's packing."""
+    sample._stage_packed's packing."""
     shifts = torch.tensor([6, 4, 2, 0], dtype=torch.uint8, device=seq2.device)
     return ((seq2[:, :, None] >> shifts) & 3).reshape(seq2.shape[0], -1)
 
@@ -128,31 +212,223 @@ def _unpack_bits(bits, L):
     return b.reshape(bits.shape[0], -1)[:, :L].bool()
 
 
+def _rec_last(rec_ends, L):
+    """(S, E) int32 record-final positions (>= L = padding) -> (S, L)
+    bool mask."""
+    S = rec_ends.shape[0]
+    rec_last = torch.zeros((S, L + 1), dtype=torch.bool, device=rec_ends.device)
+    row = torch.arange(S, device=rec_ends.device)[:, None].expand(rec_ends.shape)
+    rec_last[row, rec_ends.clamp(max=L).long()] = True
+    return rec_last[:, :L]
+
+
+def _qual_masks(base_ok, qual_bits, strict_valid: bool, has_qual: bool):
+    """(valid, qual_ok): quality-pass bits unpacked when has_qual (else
+    all pass), and strict validity = base and quality both pass."""
+    if has_qual:
+        qual_ok = _unpack_bits(qual_bits, base_ok.shape[1])
+    else:
+        qual_ok = torch.ones_like(base_ok)
+    return (base_ok & qual_ok if strict_valid else base_ok), qual_ok
+
+
 def merged_build_from_packed(
     seq2, valid_bits, qual_bits, rec_ends,
     k: int, rc: bool, W: int, is_reads: bool, use_mid_qual: bool,
     min_count: int, strict_valid: bool, has_qual: bool,
 ):
     """The merged build fed by the packed staging arrays of
-    ska_tpu.sample._stage_packed (as tensors on the build's device):
-    seq2 (S, Lp/4) uint8 2-bit codes, valid_bits (S, Lp/8) uint8 base
-    validity, qual_bits quality-pass bits, rec_ends (S, E) int32
-    record-final positions (>= Lp = padding). The quality arguments
-    keep the JAX signature; they matter only for FASTQ (ROADMAP A8).
+    sample._stage_packed (as tensors on the build's device): seq2
+    (S, Lp/4) uint8 2-bit codes, valid_bits (S, Lp/8) uint8 base
+    validity, qual_bits (S, Lp/8) quality-pass bits when has_qual,
+    rec_ends (S, E) int32 record-final positions (>= Lp = padding).
 
     Returns (ukeys, variants4, counts, n_rows) as _merged_impl."""
-    if is_reads:
-        raise NotImplementedError(
-            "FASTQ builds (count filter, quality gates) are not ported yet: "
-            "ROADMAP A8"
-        )
     codes = unpack_codes(seq2)
-    S, L = codes.shape
-    valid = _unpack_bits(valid_bits, L)  # FASTA: base validity alone
-    rec_last = torch.zeros((S, L + 1), dtype=torch.bool, device=codes.device)
-    row = torch.arange(S, device=codes.device)[:, None].expand(rec_ends.shape)
-    rec_last[row, rec_ends.clamp(max=L).long()] = True
-    return _merged_impl(codes, valid, rec_last[:, :L], k, rc, W)
+    L = codes.shape[1]
+    valid, qual_ok = _qual_masks(_unpack_bits(valid_bits, L), qual_bits,
+                                 strict_valid, has_qual)
+    return _merged_impl(codes, valid, qual_ok, _rec_last(rec_ends, L), k, rc,
+                        W, is_reads, use_mid_qual, min_count)
+
+
+def device_masks(seqs, qual_bits, rec_ends, strict_valid: bool,
+                 has_qual: bool):
+    """Validity, quality and record-end masks from raw bytes on the
+    device. seqs (S, L) uint8 (0 = padding); qual_bits (S, ceil(L/8))
+    uint8, np.packbits of the host-thresholded quality pass, or an
+    (S, 1) dummy when has_qual is False; rec_ends (S, E) int32.
+    Returns (valid, qual_ok, rec_last), each (S, L) bool."""
+    base_ok = ((seqs & 0xF) != 14) & (seqs != 0)
+    valid, qual_ok = _qual_masks(base_ok, qual_bits, strict_valid, has_qual)
+    return valid, qual_ok, _rec_last(rec_ends, seqs.shape[1])
+
+
+def sample_pipeline(seq, valid, qual_ok, rec_last, k: int, rc: bool, W: int,
+                    is_reads: bool, use_mid_qual: bool, min_count: int):
+    """Each sample's dictionary of an (S, L) batch.
+
+    Returns (packed (S, L, W) (key << 4 | set) limbs sorted with
+    sentinels last, union uint8 (S, L), is_end bool (S, L), n_unique
+    int32 (S,)). Row i of sample s's dictionary is the i-th True of
+    (is_end & non-sentinel) in row s; its key is packed >> 4 and its
+    IUPAC set is union there.
+    """
+    want_whole = bool(is_reads and min_count > 1)
+    res = X.extract_windows(seq, valid, rec_last, k, rc, W, want_whole)
+    emit = res["emit"]
+    if is_reads and use_mid_qual:
+        emit = _mid_gate(emit, qual_ok, k)
+    packed = _pack_key_set(res["key"], _sets(res), W)
+
+    if want_whole:
+        # per-occurrence min-count rank filter over whole k-mers
+        wkeys = torch.where(emit[..., None], res["whole"], _SENT)
+        swk, spos, semit = _sort_limbs(wkeys, emit.to(torch.uint8))
+        keep = _rank_ok(swk, min_count) & semit.bool()
+        packed = torch.where(keep[..., None], _gather_rows(packed, spos), _SENT)
+    else:
+        packed = torch.where(emit[..., None], packed, _SENT)
+
+    # dedup + union: a sort of the packed limbs alone (the positions and
+    # flags it carries are not read)
+    sp, _, _ = _sort_limbs(packed)
+    first = _starts(K.shr(sp, 4))  # key part only (drop the set bits)
+    union = _seg_union((sp[..., W - 1] & 15).to(torch.uint8),
+                       _seg_start_idx(first))
+    is_end = torch.ones_like(first)
+    is_end[:, :-1] = first[:, 1:]
+    nonsent = (sp != _SENT).any(dim=-1)
+    n_unique = (first & nonsent).sum(dim=1, dtype=torch.int32)
+    return sp, union, is_end, n_unique
+
+
+def sample_from_raw(
+    seq, qual_bits, rec_ends,
+    k: int, rc: bool, W: int, is_reads: bool, use_mid_qual: bool,
+    min_count: int, strict_valid: bool, has_qual: bool,
+):
+    """sample_pipeline of one (L,) sample fed by raw bytes (device_masks
+    first); returns its outputs without the batch axis."""
+    valid, qual_ok, rec_last = device_masks(
+        seq[None], qual_bits[None], rec_ends[None], strict_valid, has_qual)
+    out = sample_pipeline(seq[None], valid, qual_ok, rec_last, k, rc, W,
+                          is_reads, use_mid_qual, min_count)
+    return tuple(x[0] for x in out)
+
+
+def unpack_host(sp_np, union_np, end_np, W):
+    """Host-side compaction of the pipeline output into (keys (n, W), sets)."""
+    sp_np = np.asarray(sp_np)
+    nonsent = (sp_np != _SENT_NP).any(axis=-1)
+    sel = np.asarray(end_np) & nonsent
+    keys = _shr_np(sp_np[sel].reshape(-1, W))
+    sets = np.asarray(union_np)[sel]
+    return keys.astype(np.uint64), sets.astype(np.uint8)
+
+
+def _shr_np(pk):
+    """(n, W) uint64 >> 4 across limbs: the split keys of packed
+    (key << 4 | set) limbs."""
+    W = pk.shape[1]
+    if W == 1:
+        return pk >> np.uint64(4)
+    hi, lo = pk[:, 0], pk[:, 1]
+    return np.stack(
+        [hi >> np.uint64(4), (lo >> np.uint64(4)) | (hi << np.uint64(60))], axis=-1
+    )
+
+
+def _segment_lengths(first):
+    """Length of each segment of (S, L) rows at its start (0 elsewhere):
+    the next start less this one, the next start found by a cumulative
+    min from the right."""
+    S, L = first.shape
+    idx = torch.arange(L, dtype=torch.int32, device=first.device)
+    next_start = torch.full((S, L), L, dtype=torch.int32, device=first.device)
+    next_start[:, :-1] = torch.where(first[:, 1:], idx[1:], L + 1)
+    end = torch.cummin(next_start.flip(1), dim=1).values.flip(1)
+    return torch.where(first, end - idx, 0)
+
+
+def chunk_count_pipeline(seq, valid, qual_ok, rec_last, k: int, rc: bool,
+                         W: int, use_mid_qual: bool):
+    """Per-chunk stage of the chunked count-filtered FASTQ build, over an
+    (S, L) batch.
+
+    Every occurrence of a canonical whole k-mer yields the same split
+    (key, middle-base set) pair, so the min-count rank rule reduces to a
+    count threshold per whole k-mer, which sums over chunks.
+
+    Returns (sorted whole keys (S, L, W), is_start bool (S, L), counts
+    int32 (S, L) valid at segment starts, packed split (key << 4 | set)
+    at segment starts (S, L, W), n_unique int32 (S,)).
+    """
+    res = X.extract_windows(seq, valid, rec_last, k, rc, W, True)
+    emit = res["emit"]
+    if use_mid_qual:
+        emit = _mid_gate(emit, qual_ok, k)
+    packed = _pack_key_set(res["key"], _sets(res), W)
+    wkeys = torch.where(emit[..., None], res["whole"], _SENT)
+    packed = torch.where(emit[..., None], packed, _SENT)
+
+    # the packed split pair is a function of the whole k-mer, so the
+    # order within a tie does not matter to it
+    swk, spos, _ = _sort_limbs(wkeys)
+    spacked = _gather_rows(packed, spos)
+    first = _starts(swk)
+    counts = _segment_lengths(first)
+    live = (swk != _SENT).any(dim=-1)
+    n_unique = (first & live).sum(dim=1, dtype=torch.int32)
+    return swk, first & live, counts, spacked, n_unique
+
+
+def chunk_count_from_raw(
+    seq, qual_bits, rec_ends,
+    k: int, rc: bool, W: int, use_mid_qual: bool,
+    strict_valid: bool, has_qual: bool,
+):
+    """chunk_count_pipeline of one (L,) chunk fed by raw bytes
+    (device_masks first); returns its outputs without the batch axis."""
+    valid, qual_ok, rec_last = device_masks(
+        seq[None], qual_bits[None], rec_ends[None], strict_valid, has_qual)
+    out = chunk_count_pipeline(seq[None], valid, qual_ok, rec_last, k, rc, W,
+                               use_mid_qual)
+    return tuple(x[0] for x in out)
+
+
+def unpack_chunk_counts(swk, is_start, counts, spacked, W):
+    """Host-side compaction of chunk_count_pipeline outputs."""
+    sel = np.asarray(is_start)
+    return (
+        np.asarray(swk)[sel],
+        np.asarray(counts)[sel].astype(np.int64),
+        np.asarray(spacked)[sel],
+    )
+
+
+def chunk_key_counts(seq, valid, rec_last, k: int, rc: bool, W: int):
+    """Per-chunk split-key occurrence counts for chunked `ska cov`
+    (coverage.rs:104-135 counts split k-mer keys, qualities ignored),
+    over an (S, L) batch. Returns (sorted keys (S, L, W), is_start,
+    counts at starts)."""
+    res = X.extract_windows(seq, valid, rec_last, k, rc, W)
+    emit = res["emit"]
+    keys = torch.where(emit[..., None], res["key"], _SENT)
+    skeys, _, _ = _sort_limbs(keys)
+    first = _starts(skeys)
+    live = (skeys != _SENT).any(dim=-1)
+    return skeys, first & live, _segment_lengths(first)
+
+
+def chunk_key_counts_from_raw(seq, rec_ends, k: int, rc: bool, W: int):
+    """chunk_key_counts of one (L,) chunk fed by raw sequence bytes
+    (`ska cov` ignores quality, coverage.rs:102); returns its outputs
+    without the batch axis."""
+    valid, _, rec_last = device_masks(
+        seq[None], None, rec_ends[None], False, False)
+    out = chunk_key_counts(seq[None], valid, rec_last, k, rc, W)
+    return tuple(x[0] for x in out)
 
 
 def unpack_variants4(vp: np.ndarray, n_cols: int) -> np.ndarray:

@@ -14,8 +14,15 @@ There is no silent route between the two versions:
   carrying a gather index;
 - a CUDA tensor launches the hand-written radix kernel
   (csrc/radix_sort.cu), or raises on operands it does not take. It takes
-  the merged build's rows: 1 or 2 int64 limbs, then an int32 key, then
-  one uint8 payload; (B, L) operands are sorted row by row.
+  rows of 1 or 2 int64 limbs, then an int32, then one uint8 payload;
+  (B, L) operands are sorted row by row. Two contracts:
+  - ``num_keys == W + 1``: by (limbs, int32), the merged build's
+    (key, sample id) sort;
+  - ``num_keys == W``: by the limbs alone, the int32 and the uint8 ride
+    along as payload and the wrapper launches no pass for the int32's
+    digits. Callers carry ``int32 = arange(L)``: the sort is stable, so
+    that gives the (limbs, position) order of the JAX package's rank
+    sorts, and the positions gather any wider payload afterwards.
 """
 
 import torch
@@ -24,7 +31,8 @@ from .. import kernels
 from .keys import SIGN
 
 # CUDA launches of the radix kernels, the histogram and every scatter
-# pass together (10 for one sort of the main path's rows at W=1)
+# pass together (10 for one (key, sample id) sort of the main path's rows
+# at W=1, 9 for one sort of 62-bit whole k-mers by the limbs alone)
 radix_launches = 0
 
 RADIX_BITS = 8
@@ -99,13 +107,16 @@ def _lib():
 
 
 def _check_kernel_ops(ops, num_keys: int):
-    W = num_keys - 1
+    """The limb count W of operands the kernel takes, else raise."""
+    W = len(ops) - 2
     dtypes = [x.dtype for x in ops]
-    if W not in (1, 2) or dtypes != [torch.int64] * W + [torch.int32,
-                                                          torch.uint8]:
+    if (W not in (1, 2) or num_keys not in (W, W + 1)
+            or dtypes != [torch.int64] * W + [torch.int32, torch.uint8]):
         raise TypeError(
             "the CUDA radix sort takes 1 or 2 int64 key limbs, an int32 "
-            f"key and a uint8 payload; got num_keys={num_keys}, {dtypes}"
+            "and a uint8 payload, sorted by the limbs (num_keys=W) or by "
+            f"the limbs and the int32 (num_keys=W+1); got "
+            f"num_keys={num_keys}, {dtypes}"
         )
     x0 = ops[0]
     if x0.dim() not in (1, 2):
@@ -124,9 +135,10 @@ def _check_kernel_ops(ops, num_keys: int):
 
 def _sort_cuda(ops, num_keys: int):
     W = _check_kernel_ops(ops, num_keys)
+    keyed = num_keys > W
     if ops[0].dim() == 1:
-        return _radix_sort(ops, W)
-    rows = [_radix_sort(tuple(x[b] for x in ops), W)
+        return _radix_sort(ops, W, keyed)
+    rows = [_radix_sort(tuple(x[b] for x in ops), W, keyed)
             for b in range(ops[0].shape[0])]
     return tuple(torch.stack([r[i] for r in rows]) for i in range(len(ops)))
 
@@ -136,7 +148,15 @@ def _ptrs(xs, W):
     return keys + [xs[W].data_ptr(), xs[W + 1].data_ptr()]
 
 
-def _radix_sort(ops, W: int):
+def sort_passes(trivial, W: int, keyed: bool):
+    """The scatter passes of one sort, as (digit, operand, shift): every
+    digit of the plan that varies, less the int32's digits when it is a
+    payload (keyed False)."""
+    return [(d, op, shift) for d, (op, shift) in enumerate(digit_plan(W))
+            if not trivial[d] and (keyed or op < W)]
+
+
+def _radix_sort(ops, W: int, keyed: bool):
     """One (L,) row: the histogram launch, the trivial-digit flags read
     back (one small copy, which waits for the histogram), then one
     scatter launch per remaining digit between two ping-pong buffer
@@ -163,8 +183,7 @@ def _radix_sort(ops, W: int):
                 f"radix histogram kernel launch failed: CUDA error {err}")
         radix_launches += 1
         trivial = scratch[2 * D * 256 : 2 * D * 256 + D].tolist()
-        passes = [(d, op, shift) for d, (op, shift) in enumerate(digit_plan(W))
-                  if not trivial[d]]
+        passes = sort_passes(trivial, W, keyed)
         if not passes:
             return ops
         tiles = -(-n // tile_rows(W))

@@ -2,11 +2,12 @@
 ska_tpu/sample.py::build_samples_merged, with the port's copies of its
 host helpers.
 
-Host parsing, grouping by padded length, the batch size
-(``_auto_max_batch``), power-of-two batch padding and the packed staging
-are copies of the JAX package's functions, so every batch and every
-output byte lines up with it. The batch then runs on the port's device
-pipeline (ops/pipeline.py).
+Host parsing, grouping by (padded length, reads, quality gates), the
+batch size (``_auto_max_batch``), power-of-two batch padding, the packed
+staging and the chunking of samples over the dispatch cap
+(``_chunk_views``) are copies of the JAX package's functions, so every
+batch, every chunk and every output byte lines up with it. The batches
+and chunks then run on the port's device pipelines (ops/pipeline.py).
 
 Each step runs inside a ``torch.profiler.record_function`` span named
 ``ska::<step>`` (parse, stage, to_device, device_pass, to_host; api.py
@@ -24,12 +25,14 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from .constants import check_k
+from .constants import QUAL_MIDDLE, QUAL_STRICT, check_k
+from .encoding import SET_TO_ASCII
 from .io import fastx
 from .ops import keys as K
 from .ops import pipeline as P
-from .ops.npkeys import width_for_k
+from .ops.npkeys import np_lex_argsort, width_for_k
 from .progress import Bar
+from .sampletypes import QualOpts
 from .torchinit import get_device
 
 
@@ -68,6 +71,32 @@ def _subsample_reads(ff: fastx.FastxFile, proportion_reads):
             out.seqs.append(ff.seqs[i])
             out.quals.append(ff.quals[i])
     return out
+
+
+def _masks(batch: fastx.SeqBatch, qual: QualOpts, is_reads: bool):
+    """Base validity and middle-quality masks (host precompute)."""
+    seq = batch.seq
+    base_ok = ((seq & 0xF) != 14) & (seq != 0)
+    if batch.has_qual:
+        # 0xFF marks a record with no quality scores in a mixed batch
+        # (fastx.build_batch): always passes, like the reference's
+        # `qual: None => true` (split_kmer.rs:66-71)
+        qual_ok = ((batch.qual.astype(np.int16) - 33) > qual.min_qual) | (
+            batch.qual == 0xFF
+        )
+    else:
+        qual_ok = np.ones(len(seq), dtype=bool)
+    strict_valid = _gates(is_reads, batch.has_qual, qual)[1]
+    return (base_ok & qual_ok if strict_valid else base_ok), qual_ok
+
+
+def _gates(is_reads: bool, has_qual: bool, qual: QualOpts):
+    """(use_mid_qual, strict_valid): the middle-base quality gate runs
+    for reads with qualities under the middle and strict filters; strict
+    validity (every base of a window passes) under strict alone."""
+    use_mq = bool(is_reads and has_qual
+                  and qual.qual_filter in (QUAL_MIDDLE, QUAL_STRICT))
+    return use_mq, bool(is_reads and has_qual and qual.qual_filter == QUAL_STRICT)
 
 
 def prepare_sample(
@@ -174,11 +203,15 @@ def _max_chunk_bases() -> int:
 
 def build_samples_merged(input_files, k: int, rc: bool, qual,
                          proportion_reads=None, max_batch=None, device=None):
-    """Build and merge a FASTA cohort, one device pass per batch.
+    """Build and merge a cohort of FASTA and/or FASTQ samples.
 
-    Returns the list of (input indices, names, keys, variants, counts)
-    batch results that ska_tpu.sample.build_samples_merged returns;
-    api.build unions them and restores the input column order.
+    Samples over the dispatch cap (SKA_MAX_CHUNK_BASES) build one by one
+    in chunks (dict_from_batch_chunked); the others are grouped by
+    (padded length, reads, middle-quality gate, qualities) and run one
+    device pass per batch. Returns the list of (input indices, names,
+    keys, variants, counts) batch results that
+    ska_tpu.sample.build_samples_merged returns; api.build unions them
+    and restores the input column order.
     """
     check_k(k)
     dev = get_device(device)
@@ -190,21 +223,31 @@ def build_samples_merged(input_files, k: int, rc: bool, qual,
 
     cap = _max_chunk_bases()
     groups = {}
+    big = []
     for i, (batch, is_reads) in enumerate(prepared):
-        path = input_files[i][1]
-        if is_reads:
-            raise NotImplementedError(
-                f"{path}: FASTQ builds are not ported yet (ROADMAP A8)")
         if len(batch.seq) + k + 1 > cap:
-            raise NotImplementedError(
-                f"{path}: samples over {cap} bases need the chunked "
-                "build, which is not ported yet (ROADMAP A8)")
-        groups.setdefault(_bucket(len(batch.seq) + k + 1), []).append(i)
+            big.append(i)  # oversized sample: chunked per-sample build
+            continue
+        Lp = _bucket(len(batch.seq) + k + 1)
+        use_mq, _ = _gates(is_reads, batch.has_qual, qual)
+        key = (Lp, is_reads, use_mq, bool(batch.has_qual))
+        groups.setdefault(key, []).append(i)
 
     W = width_for_k(k)
     out = []
     bar = Bar(len(prepared), "samples")
-    for Lp, idxs in groups.items():
+    for i in big:
+        batch, is_reads = prepared[i]
+        keys_np, sets_np = dict_from_batch_chunked(batch, k, rc, qual,
+                                                   is_reads, cap, dev)
+        if len(keys_np) == 0:
+            raise ValueError(f"{input_files[i][1]} has no valid sequence")
+        var = np.asarray(SET_TO_ASCII)[sets_np][:, None]
+        counts_np = np.ones(len(keys_np), np.int64)
+        out.append(([i], [input_files[i][0]], keys_np, var, counts_np))
+        bar.update(1)
+    for (Lp, is_reads, use_mq, has_qual), idxs in groups.items():
+        _, strict_valid = _gates(is_reads, has_qual, qual)
         eff_batch = max_batch or _auto_max_batch(Lp)
         for c0 in range(0, len(idxs), eff_batch):
             chunk = idxs[c0 : c0 + eff_batch]
@@ -215,7 +258,6 @@ def build_samples_merged(input_files, k: int, rc: bool, qual,
                 staged = _stage_packed(
                     [prepared[i][0] for i in chunk], Lp, int(qual.min_qual)
                 )
-                has_qual = staged[4]
                 padded = []
                 for a, fill in zip(staged[:4], (0, 0, 0, Lp)):
                     rows = np.full((S, a.shape[1]), fill, a.dtype)
@@ -225,8 +267,8 @@ def build_samples_merged(input_files, k: int, rc: bool, qual,
                 padded = [x.to(dev) for x in padded]
             with record_function("ska::device_pass"):
                 ukeys, variants4, _counts, n_rows = P.merged_build_from_packed(
-                    *padded, k, rc, W, False, False, int(qual.min_count),
-                    False, has_qual,
+                    *padded, k, rc, W, is_reads, use_mq, int(qual.min_count),
+                    strict_valid, has_qual,
                 )
                 n = int(n_rows)
             with record_function("ska::to_host"):
@@ -242,3 +284,153 @@ def build_samples_merged(input_files, k: int, rc: bool, qual,
             bar.update(len(chunk))
     bar.finish()
     return out
+
+
+def _chunk_views(batch: fastx.SeqBatch, k: int, cap: int, valid=None):
+    """Yield (a, b, end) slice windows of the flat batch with k-1 base
+    overlap: chunk i covers window starts [a_i, a_{i+1}) exactly (its
+    slice is [a_i, a_{i+1}+k-1), so the in-range check emits no start
+    twice and drops none).
+
+    A boundary may not land where the next chunk's FIRST window is a
+    record-final window whose previous base is valid: that window's
+    emission rule (split_kmer.rs roll-only last window) consults
+    valid[a-1], which the next slice cannot see — nudge the boundary
+    forward past such spots (drift is bounded by the record length;
+    separators break the valid[b-1] condition)."""
+    L = len(batch.seq)
+    rl = batch.rec_last
+    step = max(cap - (k - 1), 1)
+    a = 0
+    while a < L:
+        b = min(a + step, L)
+        if valid is not None:
+            while (
+                b < L
+                and b + k - 1 < L
+                and rl[b + k - 1]
+                and b > 0
+                and valid[b - 1]
+            ):
+                b += 1
+        end = min(b + k - 1, L)
+        yield a, b, end
+        a = b
+
+
+def _stage_slice(batch: fastx.SeqBatch, a: int, end: int, Lp: int, qual_ok):
+    """Raw-bytes staging of the slice [a, end) of one sample, padded to
+    Lp: sequence bytes, packed quality-pass bits (an (1,) dummy without
+    qualities) and record-final positions (Lp = padding); the masks
+    derive on the device (ops.pipeline.device_masks)."""
+    n = end - a
+    seq = np.zeros(Lp, np.uint8)
+    seq[:n] = batch.seq[a:end]
+    qch = np.zeros((Lp + 7) // 8 if batch.has_qual else 1, np.uint8)
+    if batch.has_qual:
+        ok = np.zeros(Lp, bool)
+        ok[:n] = qual_ok[a:end]
+        qch = np.packbits(ok)
+    ends = np.flatnonzero(batch.rec_last[a:end]).astype(np.int32)
+    rec_ends = np.full(_bucket_min(len(ends), 16), Lp, np.int32)
+    rec_ends[: len(ends)] = ends
+    return seq, qch, rec_ends
+
+
+def key_totals(keys, counts):
+    """Sum the counts of equal keys. keys (n, W) uint64, counts (n,).
+    Returns (order, first, totals): the keys' lexicographic order, the
+    first row of each distinct key in that order, and each distinct
+    key's summed count (int64), in key order."""
+    order = np_lex_argsort(keys)
+    skeys = keys[order]
+    first = np.ones(len(skeys), bool)
+    first[1:] = (skeys[1:] != skeys[:-1]).any(axis=-1)
+    gid = np.cumsum(first) - 1
+    totals = np.bincount(gid, weights=counts[order]).astype(np.int64)
+    return order, first, totals
+
+
+def dict_from_batch_chunked(batch: fastx.SeqBatch, k: int, rc: bool,
+                            qual: QualOpts, is_reads: bool, cap: int,
+                            device=None):
+    """Chunked per-sample build for inputs larger than one device
+    dispatch (the reference streams reads with bounded memory,
+    ska_dict.rs:118-180; here bounded = `cap` bases per dispatch).
+
+    Without a count filter, chunks produce per-chunk sorted unique
+    (split key, set) pairs which merge by a host sort + segmented OR.
+    With min_count > 1, chunks produce per-whole-k-mer counts plus the
+    (identical per whole k-mer) split pair; counts sum across chunks
+    and the threshold applies globally (see
+    ops.pipeline.chunk_count_pipeline).
+    """
+    dev = get_device(device)
+    W = width_for_k(k)
+    valid_full, qual_full = _masks(batch, qual, is_reads)
+    use_mq, strict_valid = _gates(is_reads, batch.has_qual, qual)
+    want_count = bool(is_reads and qual.min_count > 1)
+    Lp = _bucket(cap + k + 1)
+    has_qual = bool(batch.has_qual)
+
+    kparts, sparts = [], []
+    wparts, cparts, pparts = [], [], []
+    for a, b, end in _chunk_views(batch, k, cap, valid_full):
+        # the host-side valid_full is only the chunk-boundary oracle
+        with record_function("ska::stage"):
+            staged = _stage_slice(batch, a, end, Lp, qual_full)
+        with record_function("ska::to_device"):
+            seq, qch, rec_ends = (torch.from_numpy(x).to(dev) for x in staged)
+        if want_count:
+            with record_function("ska::device_pass"):
+                swk, is_start, counts, spacked, nu = P.chunk_count_from_raw(
+                    seq, qch, rec_ends, k, rc, W, use_mq, strict_valid,
+                    has_qual,
+                )
+                int(nu)  # the copies below wait for the card anyway
+            with record_function("ska::to_host"):
+                wk, cnt, pk = P.unpack_chunk_counts(
+                    K.to_numpy_keys(swk), is_start.cpu().numpy(),
+                    counts.cpu().numpy(), K.to_numpy_keys(spacked), W)
+            wparts.append(wk)
+            cparts.append(cnt)
+            pparts.append(pk)
+        else:
+            with record_function("ska::device_pass"):
+                sp, union, is_end, nu = P.sample_from_raw(
+                    seq, qch, rec_ends, k, rc, W, is_reads, use_mq, 0,
+                    strict_valid, has_qual,
+                )
+                int(nu)
+            with record_function("ska::to_host"):
+                kk, ss = P.unpack_host(K.to_numpy_keys(sp),
+                                       union.cpu().numpy(),
+                                       is_end.cpu().numpy(), W)
+            kparts.append(kk)
+            sparts.append(ss)
+
+    if want_count:
+        order, first, totals = key_totals(np.concatenate(wparts),
+                                          np.concatenate(cparts))
+        # contribute iff the total occurrence count reaches min_count
+        # (identical split pair for every occurrence of a whole k-mer)
+        pk = np.concatenate(pparts)[order][first][totals >= qual.min_count]
+        keys = P._shr_np(pk)
+        sets = (pk[:, W - 1] & np.uint64(15)).astype(np.uint8)
+    else:
+        keys = np.concatenate(kparts) if kparts else np.zeros((0, W), np.uint64)
+        sets = np.concatenate(sparts) if sparts else np.zeros(0, np.uint8)
+
+    # merge across chunks / whole-kmer groups: sort by split key +
+    # segmented union of the 4-bit sets
+    if len(keys):
+        order = np_lex_argsort(keys)
+        keys, sets = keys[order], sets[order]
+        first = np.ones(len(keys), bool)
+        first[1:] = (keys[1:] != keys[:-1]).any(axis=-1)
+        # segmented OR via reduceat (ufunc.at is unbuffered and ~100x
+        # slower at genome scale)
+        sets = np.bitwise_or.reduceat(sets, np.flatnonzero(first))
+        keys = keys[first]
+    return keys.astype(np.uint64), sets.astype(np.uint8)
+

@@ -160,9 +160,3 @@ def test_device_choice(monkeypatch):
         with pytest.raises(RuntimeError, match="no CUDA"):
             get_device()
 
-
-def test_fastq_build_raises(tmp_path):
-    fq = tmp_path / "r.fq"
-    fq.write_bytes(b"@r1\nACGTACGTACGTACGTACGT\n+\nIIIIIIIIIIIIIIIIIIII\n")
-    with pytest.raises(NotImplementedError, match="A8"):
-        tapi.build([("r", str(fq), None)], 9, True, QUAL, device="cpu")

@@ -1,0 +1,310 @@
+"""The port's FASTQ build on the CPU, against the JAX package.
+
+- ska_tpu_torch.api.build writes the same .skf bytes as ska_tpu.api.build
+  for paired read sets (plain and .gz FASTQ with random qualities, Ns and
+  reads that repeat) over counts, quality filters and k, for a single
+  strand, for a cohort that mixes FASTA and FASTQ samples, for a
+  FASTQ/FASTA mate pair, and with SKA_MAX_CHUNK_BASES forcing samples
+  through the chunked build;
+- the port's sample_pipeline, chunk_count_pipeline and the reads branch
+  of the merged build equal the JAX functions on the same numpy inputs,
+  compared after unpacking (the JAX sorts there are unstable, so only
+  what they fix is compared);
+- a record-final window at a chunk boundary is still emitted.
+"""
+
+import gzip
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ska_tpu import api as japi
+from ska_tpu import sample as jsample
+from ska_tpu.io import fastx as jfastx
+from ska_tpu.io import skf
+from ska_tpu.ops import pipeline as JP
+from ska_tpu.sampletypes import QualOpts
+from ska_tpu_torch import api as tapi
+from ska_tpu_torch import sample as tsample
+from ska_tpu_torch.ops import keys as TK
+from ska_tpu_torch.ops import pipeline as TP
+
+PIN = {"SKA_NATIVE_BUILD": "0", "SKA_NATIVE_CMDS": "0", "SKA_DISTRIBUTED": "0"}
+ACGT = np.frombuffer(b"ACGT", np.uint8)
+COMP = np.zeros(256, np.uint8)
+COMP[list(b"ACGTN")] = list(b"TGCAN")
+
+
+@pytest.fixture(autouse=True)
+def _pin_jax_path(monkeypatch):
+    for var, val in PIN.items():
+        monkeypatch.setenv(var, val)
+
+
+def _genome(rng, n):
+    return rng.choice(ACGT, size=n)
+
+
+def _read_pairs(rng, genome, n_pairs, rlen, repeat=0.1):
+    """Paired reads of fragments of 1.5-2.5 read lengths, from both
+    strands, with 1% substitutions, a few Ns, PHRED+33 qualities mostly
+    high with ~4% low bases, and ~`repeat` of the pairs repeated."""
+    mates = ([], [])
+    for _ in range(n_pairs):
+        ins = int(rng.integers(3 * rlen // 2, 5 * rlen // 2))
+        a = int(rng.integers(0, len(genome) - ins))
+        frag = genome[a : a + ins]
+        pair = [frag[:rlen].copy(), COMP[frag[-rlen:][::-1]]]
+        if rng.random() < 0.5:
+            pair = pair[::-1]
+        for mate, r in zip(mates, pair):
+            err = rng.random(rlen) < 0.01
+            r[err] = rng.choice(ACGT, size=int(err.sum()))
+            r[rng.random(rlen) < 0.003] = ord("N")
+            q = rng.integers(33 + 25, 33 + 41, size=rlen).astype(np.uint8)
+            q[rng.random(rlen) < 0.04] = 33 + int(rng.integers(2, 20))
+            mate.append((r.tobytes(), q.tobytes()))
+        if rng.random() < repeat:
+            for mate in mates:
+                mate.append(mate[-1])
+    return mates
+
+
+def _write_fastq(path, reads, gz=False):
+    data = b"".join(b"@r%d\n%s\n+\n%s\n" % (i, s, q)
+                    for i, (s, q) in enumerate(reads))
+    with (gzip.open if gz else open)(path, "wb") as f:
+        f.write(data)
+    return str(path)
+
+
+def _fastq_cohort(tmp_path, seed, n_samples=3, glen=700, n_pairs=120,
+                  rlen=80):
+    """Related samples as paired FASTQ; odd samples are gzipped."""
+    rng = np.random.default_rng(seed)
+    base = _genome(rng, glen)
+    files = []
+    for s in range(n_samples):
+        g = base.copy()
+        snp = rng.random(glen) < 0.01
+        g[snp] = rng.choice(ACGT, size=int(snp.sum()))
+        fwd, rev = _read_pairs(rng, g, n_pairs, rlen)
+        ext = ".fastq.gz" if s % 2 else ".fastq"
+        files.append((f"s{s}",
+                      _write_fastq(tmp_path / f"s{s}_1{ext}", fwd, s % 2),
+                      _write_fastq(tmp_path / f"s{s}_2{ext}", rev, s % 2)))
+    return files
+
+
+def _skf_bytes_equal(tmp_path, files, k, rc, qual):
+    port = tapi.build(files, k, rc, qual, device="cpu")
+    ref = japi.build(files, k, rc, qual)
+    assert port.names == ref.names
+    a = skf.save(port, str(tmp_path / "port"))
+    b = skf.save(ref, str(tmp_path / "ref"))
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        assert fa.read() == fb.read()
+    return port
+
+
+@pytest.mark.parametrize("k,min_count,qual_filter", [
+    (7, 1, 2), (9, 2, 1), (9, 3, 0), (17, 5, 2), (63, 3, 2),
+])
+def test_api_build_fastq_matches_jax(tmp_path, k, min_count, qual_filter):
+    files = _fastq_cohort(tmp_path, seed=k * 10 + min_count,
+                          rlen=120 if k > 31 else 80)
+    qual = QualOpts(min_count=min_count, min_qual=20, qual_filter=qual_filter)
+    port = _skf_bytes_equal(tmp_path, files, k, True, qual)
+    assert port.ksize > 0
+
+
+def test_api_build_fastq_single_strand_matches_jax(tmp_path):
+    files = _fastq_cohort(tmp_path, seed=5)
+    qual = QualOpts(min_count=2, min_qual=20, qual_filter=2)
+    _skf_bytes_equal(tmp_path, files, 11, False, qual)
+
+
+def test_api_build_mixed_fasta_fastq_cohort_matches_jax(tmp_path):
+    """FASTA and FASTQ samples of one cohort build in separate groups,
+    and api.build puts the columns back in input order."""
+    files = _fastq_cohort(tmp_path, seed=6, n_samples=2)
+    rng = np.random.default_rng(6)
+    for s in range(2):
+        p = tmp_path / f"a{s}.fa"
+        p.write_bytes(b">c\n" + _genome(rng, 500 + 300 * s).tobytes() + b"\n")
+        files.insert(2 * s, (f"a{s}", str(p), None))
+    qual = QualOpts(min_count=2, min_qual=20, qual_filter=2)
+    port = _skf_bytes_equal(tmp_path, files, 15, True, qual)
+    assert port.names == ["a0", "s0", "a1", "s1"]
+
+
+def test_api_build_fastq_fasta_mate_pair_matches_jax(tmp_path):
+    """A pair that mixes a FASTQ with a FASTA mate: the mate's records
+    carry quality bytes of 0xFF, which always pass."""
+    files = _fastq_cohort(tmp_path, seed=7, n_samples=2)
+    rng = np.random.default_rng(7)
+    fa = tmp_path / "mate.fa"
+    fa.write_bytes(b">m\n" + _genome(rng, 400).tobytes() + b"\n")
+    files[1] = (files[1][0], files[1][1], str(fa))
+    qual = QualOpts(min_count=1, min_qual=20, qual_filter=2)
+    _skf_bytes_equal(tmp_path, files, 17, True, qual)
+
+
+@pytest.mark.parametrize("input_kind,min_count", [
+    ("fasta", 0), ("fastq", 0), ("fastq", 2), ("fastq", 3),
+])
+def test_api_build_chunked_matches_jax(tmp_path, monkeypatch, input_kind,
+                                       min_count):
+    """SKA_MAX_CHUNK_BASES=1024 sends the larger samples through the
+    chunked build (dict_from_batch_chunked): the .skf equals JAX's under
+    the same cap and the port's own unchunked build."""
+    if input_kind == "fasta":
+        rng = np.random.default_rng(11)
+        files = []
+        for s, n in enumerate((3000, 700, 2500)):
+            g = _genome(rng, n)
+            g[rng.choice(n, 10, replace=False)] = ord("N")
+            p = tmp_path / f"c{s}.fa"
+            p.write_bytes(b">c\n" + g[: n // 2].tobytes() + b"\n>d\n"
+                          + g[n // 2 :].tobytes() + b"\n")
+            files.append((f"c{s}", str(p), None))
+    else:
+        files = _fastq_cohort(tmp_path, seed=12 + min_count, n_samples=2,
+                              n_pairs=60)
+    qual = QualOpts(min_count=min_count, min_qual=20, qual_filter=2)
+    whole = tapi.build(files, 17, True, qual, device="cpu")
+    monkeypatch.setenv("SKA_MAX_CHUNK_BASES", "1024")
+    port = _skf_bytes_equal(tmp_path, files, 17, True, qual)
+    assert np.array_equal(port.keys, whole.keys)
+    assert np.array_equal(port.variants, whole.variants)
+
+
+def test_chunked_build_steps_are_profiler_spans(tmp_path, monkeypatch):
+    """The chunked build's device calls run inside the same ska:: spans
+    as the merged build's (chip_smoke.py's profile reads them)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ska_tpu_torch import cli
+
+    files = _fastq_cohort(tmp_path, seed=8, n_samples=1, n_pairs=40)
+    tsv = tmp_path / "s.tsv"
+    tsv.write_text("".join("\t".join(f) + "\n" for f in files))
+    monkeypatch.setenv("SKA_MAX_CHUNK_BASES", "4096")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        cli.main(["build", "-f", str(tsv), "-k", "17", "--min-count", "2",
+                  "-o", str(tmp_path / "p"), "--device", "cpu"])
+    spans = [e.name for e in prof.events() if e.name.startswith("ska::")]
+    steps = ("parse", "stage", "to_device", "device_pass", "to_host",
+             "union", "save")
+    assert set(spans) == {f"ska::{s}" for s in steps}
+    assert spans.count("ska::device_pass") > 1  # one per chunk
+
+
+def test_chunked_boundary_on_record_final_window():
+    """A record whose final (roll-only) window starts exactly at a chunk
+    boundary is still emitted: the boundary nudges forward so that the
+    emission rule sees the previous base's validity. The chunked build
+    must equal the JAX package's unchunked and chunked builds."""
+    k, cap = 9, 64
+    step = cap - (k - 1)
+    rng = np.random.default_rng(2)
+    rec = _genome(rng, step + k)  # final window starts at `step`
+    batch = tsample.fastx.build_batch([rec.tobytes()])
+    views = list(tsample._chunk_views(batch, k, cap, np.ones(len(rec), bool)))
+    assert views[0][1] == step + 1  # nudged past the final window
+    got = tsample.dict_from_batch_chunked(batch, k, True, QualOpts(), False,
+                                          cap, device="cpu")
+    jbatch = jfastx.build_batch([rec.tobytes()])
+    whole = jsample.dict_from_batch(jbatch, k, True, QualOpts(), False)
+    chunked = jsample.dict_from_batch_chunked(jbatch, k, True, QualOpts(),
+                                              False, cap)
+    for g, w, c in zip(got, whole, chunked):
+        assert np.array_equal(g, w) and np.array_equal(g, c)
+
+
+# ---- the per-sample pipelines on the same numpy inputs ----------------
+
+
+def _reads_batch(seed, rlen=60, n_pairs=50, glen=300):
+    rng = np.random.default_rng(seed)
+    fwd, rev = _read_pairs(rng, _genome(rng, glen), n_pairs, rlen)
+    seqs, quals = zip(*(fwd + rev))
+    return jfastx.build_batch(list(seqs), list(quals))
+
+
+def _raw_inputs(batch, k, qual):
+    """The JAX package's raw staging of one sample, as numpy arrays."""
+    Lp = jsample._bucket(len(batch.seq) + k + 1)
+    seqs, qual_bits, rec_ends, has_qual = jsample._stage_raw(
+        [batch], Lp, qual.min_qual)
+    return seqs[0], qual_bits[0], rec_ends[0], has_qual
+
+
+def _gates(qual):
+    return qual.qual_filter in (1, 2), qual.qual_filter == 2
+
+
+@pytest.mark.parametrize("k,min_count,qual_filter", [
+    (9, 0, 2), (9, 2, 1), (15, 3, 2), (33, 2, 0),
+])
+def test_sample_pipeline_matches_jax(k, min_count, qual_filter):
+    W = 1 if k <= 31 else 2
+    qual = QualOpts(min_count=min_count, min_qual=20, qual_filter=qual_filter)
+    seq, qb, ends, has_qual = _raw_inputs(_reads_batch(k), k, qual)
+    use_mq, strict = _gates(qual)
+    args = (k, True, W, True, use_mq, min_count, strict, has_qual)
+    want = JP.sample_from_raw(jnp.asarray(seq), jnp.asarray(qb),
+                              jnp.asarray(ends), *args)
+    got = TP.sample_from_raw(torch.from_numpy(seq), torch.from_numpy(qb),
+                             torch.from_numpy(ends), *args)
+    wk, ws = JP.unpack_host(*want[:3], W)
+    gk, gs = TP.unpack_host(TK.to_numpy_keys(got[0]), got[1].numpy(),
+                            got[2].numpy(), W)
+    assert len(wk) > 0 and int(got[3]) == int(want[3]) == len(wk)
+    assert np.array_equal(gk, wk) and np.array_equal(gs, ws)
+
+
+@pytest.mark.parametrize("k,qual_filter", [(9, 2), (17, 1), (35, 0)])
+def test_chunk_count_pipeline_matches_jax(k, qual_filter):
+    W = 1 if k <= 31 else 2
+    qual = QualOpts(min_count=2, min_qual=20, qual_filter=qual_filter)
+    seq, qb, ends, has_qual = _raw_inputs(_reads_batch(k + 1), k, qual)
+    use_mq, strict = _gates(qual)
+    args = (k, True, W, use_mq, strict, has_qual)
+    want = JP.chunk_count_from_raw(jnp.asarray(seq), jnp.asarray(qb),
+                                   jnp.asarray(ends), *args)
+    got = TP.chunk_count_from_raw(torch.from_numpy(seq), torch.from_numpy(qb),
+                                  torch.from_numpy(ends), *args)
+    w = JP.unpack_chunk_counts(*want[:4], W)
+    g = TP.unpack_chunk_counts(TK.to_numpy_keys(got[0]), got[1].numpy(),
+                               got[2].numpy(), TK.to_numpy_keys(got[3]), W)
+    assert int(got[4]) == int(want[4]) == len(w[0]) > 0
+    assert w[1].max() > 1  # some whole k-mers occur more than once
+    for a, b in zip(g, w):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("S,k,min_count,qual_filter", [
+    (1, 9, 3, 2), (2, 11, 2, 1), (3, 31, 5, 2), (2, 45, 2, 0), (2, 13, 1, 1),
+])
+def test_merged_reads_branch_matches_jax(S, k, min_count, qual_filter):
+    """merged_build_from_packed with is_reads: quality bits, strict
+    validity, the middle-base gate and the per-sample rank filter."""
+    W = 1 if k <= 31 else 2
+    qual = QualOpts(min_count=min_count, min_qual=20, qual_filter=qual_filter)
+    batches = [_reads_batch(100 * S + k + s, n_pairs=80) for s in range(S)]
+    Lp = jsample._bucket(max(len(b.seq) for b in batches) + k + 1)
+    staged = jsample._stage_packed(batches, Lp, qual.min_qual)
+    use_mq, strict = _gates(qual)
+    args = (k, True, W, True, use_mq, min_count, strict, staged[4])
+    want = JP.merged_build_from_packed(*(jnp.asarray(x) for x in staged[:4]),
+                                       *args)
+    got = TP.merged_build_from_packed(
+        *(torch.from_numpy(x) for x in staged[:4]), *args)
+    n = int(np.asarray(want[3]))
+    assert n > 0 and int(got[3]) == n
+    assert np.array_equal(TK.to_numpy_keys(got[0][:n]), np.asarray(want[0])[:n])
+    assert np.array_equal(got[1][:n].numpy(), np.asarray(want[1])[:n])
+    assert np.array_equal(got[2][:n].numpy(), np.asarray(want[2])[:n])

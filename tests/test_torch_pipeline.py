@@ -76,15 +76,18 @@ def test_merged_build_from_packed_matches_jax(S, k, rc):
 
 
 def test_fastq_and_oversized_batches_raise():
+    """A reads batch builds (an empty one to no rows); an oversized
+    batch raises."""
     seq2 = torch.zeros((1, 256), dtype=torch.uint8)
     bits = torch.zeros((1, 128), dtype=torch.uint8)
     ends = torch.full((1, 16), 1024, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="A8"):
-        TP.merged_build_from_packed(seq2, bits, bits, ends, 9, True, 1,
-                                    True, False, 1, False, True)
+    out = TP.merged_build_from_packed(seq2, bits, bits, ends, 9, True, 1,
+                                      True, True, 3, True, True)
+    assert int(out[3]) == 0
     big = torch.zeros((1 << 11, 1 << 10), dtype=torch.uint8)
     with pytest.raises(ValueError, match="SKA_MAX_BATCH"):
-        TP._merged_impl(big, big.bool(), big.bool(), 9, True, 1)
+        TP._merged_impl(big, big.bool(), big.bool(), big.bool(), 9, True, 1,
+                        False, False, 1)
 
 
 def test_unpack_variants4_matches_jax():

@@ -180,12 +180,12 @@ def _emulate_pass(ops, W, op, shift, offsets, wave):
     return out
 
 
-def _emulate_radix(ops, W, wave=3):
+def _emulate_radix(ops, W, wave=3, keyed=True):
     """The wrapper's launches on one (L,) row: the histogram, then one
-    scatter pass per digit that is not trivial, ping-ponging."""
+    scatter pass per digit that is not trivial (and, when the int32 is a
+    payload, keyed False, none for its digits), ping-ponging."""
     offsets, trivial = _emulate_histogram(ops, W)
-    passes = [(d, op, sh) for d, (op, sh) in enumerate(SO.digit_plan(W))
-              if not trivial[d]]
+    passes = SO.sort_passes(trivial, W, keyed)
     for d, op, sh in passes:
         ops = _emulate_pass(ops, W, op, sh, offsets[d], wave)
     return ops, len(passes)
@@ -215,6 +215,55 @@ def test_radix_emulation_matches_plain(W, shape):
     for i, w in enumerate(want):
         g = np.stack([r[i] for r in got]).reshape(shape)
         assert np.array_equal(g.view(w.dtype), w), i
+
+
+def _whole_kmer_rows(W, n, seed):
+    """Rows as the reads build sorts them by the limbs alone: whole
+    k-mer limbs of 62 (W=1) or 126 (W=2) bits, each key about 24 times,
+    1/8 all-ones sentinels, the positions as the int32 and a uint8 of
+    flags."""
+    rng = np.random.default_rng(seed)
+    pool = rng.integers(0, 1 << 62, size=(max(n // 24, 1), W), dtype=np.uint64)
+    if W == 2:
+        pool[:, 1] = rng.integers(0, 1 << 63, size=len(pool),
+                                  dtype=np.uint64) * np.uint64(2) + np.uint64(1)
+    limbs = pool[rng.integers(0, len(pool), size=n)]
+    limbs[rng.random(n) < 0.125] = ALL_ONES
+    return ([limbs[:, i].copy() for i in range(W)],
+            np.arange(n, dtype=np.int32),
+            rng.integers(0, 32, size=n).astype(np.uint8))
+
+
+@pytest.mark.parametrize("W", [1, 2])
+@pytest.mark.parametrize("n", [1, 1000, "a tile + 7"])
+def test_radix_emulation_limbs_only_matches_plain(W, n):
+    """The num_keys == W contract: the int32 rides along as payload, so
+    the sort is by the limbs, stable, and every operand equals the plain
+    sort's; the positions carried are the (limbs, position) order."""
+    if n == "a tile + 7":
+        n = SO.tile_rows(W) + 7
+    limbs, pos, flags = _whole_kmer_rows(W, n, seed=n + W)
+    ops = _tensors(limbs, pos, flags)
+    want = _as_numpy(SO.sort_ops(ops, num_keys=W), W)
+    cols = [x.view(np.int64) for x in limbs] + [pos, flags]
+    got, _ = _emulate_radix(cols, W, wave=1 + n % 4, keyed=False)
+    for g, w in zip(got, want):
+        assert np.array_equal(g.view(w.dtype), w)
+    order = np.lexsort([pos] + [x for x in limbs[::-1]])
+    assert np.array_equal(want[W], pos[order])
+
+
+@pytest.mark.parametrize("W,passes", [(1, 8), (2, 16)])
+def test_digit_plan_passes_limbs_only(W, passes):
+    """Sorted by the limbs alone, 62- and 126-bit whole k-mers need 8 and
+    16 scatter passes (9 and 17 launches with the histogram): none for
+    the int32 payload, whose low bytes vary."""
+    limbs, pos, flags = _whole_kmer_rows(W, 1 << 14, seed=W)
+    cols = [x.view(np.int64) for x in limbs] + [pos, flags]
+    _, trivial = _emulate_histogram(cols, W)
+    assert not trivial[:2].any()  # the positions' low bytes vary
+    assert len(SO.sort_passes(trivial, W, keyed=False)) == passes
+    assert len(SO.sort_passes(trivial, W, keyed=True)) == passes + 2
 
 
 @pytest.mark.parametrize("wave", [1, 3, 8])
@@ -256,10 +305,13 @@ def test_cpu_takes_plain_and_kernel_checks_operands():
     SO.sort_ops(ops, num_keys=2)
     assert SO.radix_launches == before
     assert SO._check_kernel_ops(ops, 2) == 1
+    assert SO._check_kernel_ops(ops, 1) == 1  # the int32 as payload
     with pytest.raises(TypeError):
         SO._check_kernel_ops(ops[:1] + (ops[1].long(), ops[2]), 2)
     with pytest.raises(TypeError):
-        SO._check_kernel_ops(ops, 1)
+        SO._check_kernel_ops(ops, 3)
+    with pytest.raises(TypeError):
+        SO._check_kernel_ops(ops[:1] + ops[2:], 1)
     with pytest.raises(ValueError):
         SO._check_kernel_ops((ops[0][::2], ops[1][::2], ops[2][::2]), 2)
     with pytest.raises(ValueError):
