@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed 0]
 
 Run from the root of a checkout; it needs one CUDA card and refuses to
-run without one. Six phases, and any failure ends the run with a
+run without one. Eight phases, and any failure ends the run with a
 non-zero exit (nothing is caught, nothing moves to the CPU):
 
 1. Build the port's native libraries from the sources in the checkout,
@@ -26,7 +26,14 @@ non-zero exit (nothing is caught, nothing moves to the CPU):
    torch.sort(limb ^ SIGN, stable=True) plus the uint8 gather, which
    gives the same order and positions. Last, the (key, sample id) layout
    at W=1 once more at N = 2^27 rows with 2 sample ids, the shape of
-   phase 5's global sort (2 samples x 2^26), every operand equal.
+   phase 5's global sort (2 samples x 2^26), every operand equal. Then
+   the kernel as `map`'s lookup (ops/keys.py searchsorted_via_sort):
+   2^21 queries (95% present, some shared by many rows, 64 all-ones) in
+   a sorted table of 2^23 unique 60-bit (W=1) or 124-bit (W=2) keys,
+   the sort of the 2^23 + 2^21 rows by the limbs alone equal on every
+   operand to the plain sort's, the lower bounds equal to the plain
+   binary search's (ops/keys.py searchsorted); at W=1 the library
+   yardstick is torch.searchsorted on the sign-biased limb.
 3. The main path: `ska build` of a cohort of 21 related 2 Mb genomes
    (S. pneumoniae size; each a 1.95 Mb chromosome plus a 50 kb plasmid
    with ~0.5% SNPs, short indels, an N run and IUPAC letters, made from
@@ -60,6 +67,22 @@ non-zero exit (nothing is caught, nothing moves to the CPU):
    1 --qual-filter middle`, .skf bytes and stdout equal to those of
    `python -m ska_tpu_torch build --device cpu` run in a process of its
    own; `cov` stdout of pairs 00 (one dispatch) and 04 (chunked) equal.
+7. `ska map` of phase 3's k31.skf to genome00.fa (two records) as aln,
+   VCF and aln with --ambig-mask --repeat-mask, and of k63.skf as aln,
+   on the card, each output's bytes equal to the plain CPU route's (a
+   process of its own); `ska weed` of the reference's split k-mers
+   (scanned on the card) from k31.skf, .skf bytes equal to the CPU
+   route's; the aln once more with SKA_MAX_CHUNK_BASES = 1048448, so
+   that the chromosome extracts in k-1-overlap slices, equal to the
+   unsliced bytes; the radix kernel launched in every card map; a warm
+   k=31 VCF map under torch.profiler (spans and device).
+8. `ska distance` of k31.skf, plain, --min-freq 0.5 and
+   --allow-ambiguous, TSV bytes equal to the CPU route's; then the class
+   Gram of k31.skf's variable sites and of 512 samples x 2^20 sites on a
+   random tree (made from --seed) by the port (int8 products) and by the
+   plain version (host dedupe as in the JAX package, then weighted f32
+   products), equal as int64, with each one's time beside its matmul
+   bound.
 
 The last lines are the card's name and power limit (nvidia-smi), one
 JSON line with each kernel's launches, error and times, and the result
@@ -80,6 +103,7 @@ WORK = os.path.join(REPO, "build", "chip_smoke")
 GOLDEN = -7046029254386353131  # 0x9E3779B97F4A7C15 as int64
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, NVIDIA's data sheet
 PEAK_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+INT8_OPS_PER_S = 1979e12  # H100 SXM int8 tensor cores, dense
 SORT_LOG2 = 25  # rows of the k=31 build's first batch: 16 genomes x 2^21
 READS_SORT_LOG2 = 27  # rows of phase 5's global sort: 2 samples x 2^26
 LIMBS_LOG2 = 26  # rows of one 30x sample's rank sort in phase 5 (Lp = 2^26)
@@ -91,6 +115,12 @@ INSERT = (300, 500)  # fragment lengths, inclusive
 DEPTHS = (30, 30, 30, 30, 60)  # reads samples: genomes 00-04
 SMALL_BASES = 200_000  # phase 6: the first bases of each genome
 SMALL_CAP = 8_388_480  # phase 6's SKA_MAX_CHUNK_BASES: Lp = 2^23
+LOOKUP_TABLE_LOG2 = 23  # keys of a .skf of ~21 genomes of 2 Mb, rounded up
+LOOKUP_QUERY_LOG2 = 21  # split k-mers of a 2 Mb reference
+MAP_SLICE_CAP = 1_048_448  # phase 7's sliced run: 2^20 - 128 bases a slice
+GRAM_SAMPLES = 512  # phase 8's cohort-size Gram: samples ...
+GRAM_SITES_LOG2 = 20  # ... and variable sites
+ALL_ONES = 0xFFFFFFFFFFFFFFFF
 DEVICE = "cuda"
 
 
@@ -281,6 +311,120 @@ def phase_sort_limbs(torch, SO, W, seed, dev):
     return res
 
 
+def lookup_case(W, seed):
+    """map's lookup at full size, as numpy uint64 keys: a sorted table of
+    2^23 unique keys of 60 bits (W=1) or 60 + 64 bits (W=2, about 8 keys
+    to each hi limb, so the lo limb decides often), the last one
+    all-ones; 2^21 queries, 95% of them table keys (a twentieth of those
+    drawn from 256 keys that many rows share), 5% absent (at W=2 a
+    table key's hi limb with another lo limb), 64 all-ones."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    N, M = 1 << LOOKUP_TABLE_LOG2, 1 << LOOKUP_QUERY_LOG2
+    extra = N + N // 16
+    cols = [rng.integers(0, 1 << 60, size=extra, dtype=np.uint64)]
+    if W == 2:
+        cols = [rng.choice(cols[0][: N // 8], size=extra),
+                rng.integers(0, ALL_ONES, size=extra, dtype=np.uint64,
+                             endpoint=True)]
+    order = np.lexsort(cols[::-1])
+    keys = np.stack([c[order] for c in cols], axis=-1)
+    first = np.ones(len(keys), bool)
+    first[1:] = (keys[1:] != keys[:-1]).any(axis=1)
+    keys = keys[first]
+    keys = keys[np.sort(rng.choice(len(keys), N - 1, replace=False))]
+    table = np.concatenate([keys, np.full((1, W), ALL_ONES, np.uint64)])
+    idx = rng.integers(0, N, size=M)
+    shared = rng.random(M) < 0.05
+    idx[shared] = rng.choice(N, 256)[rng.integers(0, 256, int(shared.sum()))]
+    queries = table[idx]
+    absent = rng.random(M) < 0.05
+    queries[absent, W - 1] = rng.integers(
+        0, 1 << 60 if W == 1 else ALL_ONES, size=int(absent.sum()),
+        dtype=np.uint64, endpoint=W == 2)
+    queries[rng.integers(0, M, 64)] = ALL_ONES
+    return table, queries
+
+
+def phase_lookup(torch, SO, TK, W, seed, dev):
+    """The radix kernel as map's lookup (ops/keys.py searchsorted_via_sort):
+    the sort of [queries; table] by the limbs alone, every operand
+    against the plain sort; the lower bounds against the plain binary
+    search (and at W=1 the library call); times and launches."""
+    table_np, q_np = lookup_case(W, seed + 30 + W)
+    N, M = len(table_np), len(q_np)
+    table = TK.from_numpy_keys(table_np, dev)
+    queries = TK.from_numpy_keys(q_np, dev)
+    ops = TK.lookup_operands(table, queries)
+    before = SO.radix_launches
+    got = SO._sort_cuda(ops, W)
+    launches = SO.radix_launches - before
+    want = SO._sort_plain(ops, W)
+    torch.cuda.synchronize()
+    err = 0
+    for g, w in zip(got, want):
+        err = max(err, int((g != w).sum()))
+    check(err == 0, f"lookup sort W={W}: {err} rows differ from the plain sort")
+    before = SO.radix_launches
+    lb = TK.searchsorted_via_sort(table, queries)
+    per_lookup = SO.radix_launches - before
+    check(bool((lb == TK.searchsorted(table, queries)).all()),
+          f"lookup W={W}: lower bounds differ from the plain binary search")
+    ones = (queries == -1).all(dim=1)
+    check(bool((lb[ones] == N - 1).all()), "all-ones queries find the last key")
+    hits = float(TK.equal(table[lb.clamp(0, N - 1)], queries).float().mean())
+
+    biased = (table[:, 0] ^ TK.SIGN, queries[:, 0] ^ TK.SIGN)
+
+    def library():
+        return torch.searchsorted(*biased)
+
+    lib_ms = None
+    if W == 1:
+        check(bool((library() == lb).all()), "torch.searchsorted differs")
+    kern, plain, full, bsearch, lib = [], [], [], [], []
+    for _ in range(3):
+        plain += time_ms(torch, lambda: SO._sort_plain(ops, W), 1)
+        kern += time_ms(torch, lambda: SO._sort_cuda(ops, W), 2)
+        full += time_ms(torch, lambda: TK.searchsorted_via_sort(table, queries), 1)
+        bsearch += time_ms(torch, lambda: TK.searchsorted(table, queries), 1)
+        if W == 1:
+            lib += time_ms(torch, library, 2)
+        plain += time_ms(torch, lambda: SO._sort_plain(ops, W), 1)
+    if lib:
+        lib_ms = statistics.median(lib)
+    bound, bound_by = sort_bound(W, N + M, keys=W)
+    res = {
+        "max_abs_err": float(err),
+        "ms": statistics.median(kern),
+        "plain_ms": statistics.median(plain),
+        "library_ms": lib_ms,
+        "bound_ms": bound,
+        "bound_by": bound_by,
+        "launches_per_sort": launches,
+        "launches_per_lookup": per_lookup,
+        "lookup_ms": statistics.median(full),
+        "bsearch_ms": statistics.median(bsearch),
+    }
+    lib_txt = "" if lib_ms is None else (
+        f"; library torch.searchsorted on the sign-biased limb {lib_ms:.3f} ms "
+        f"(runs {[round(x, 3) for x in lib]})")
+    log(f"phase 2: map's lookup W={W}, {M} queries in {N} keys ({100 * hits:.2f}% "
+        f"found): radix sort of the {N + M} rows {res['ms']:.3f} ms, plain sort "
+        f"{res['plain_ms']:.3f} ms, bound {bound:.3f} ms by {bound_by} "
+        f"({100 * bound / res['ms']:.2f}% of the bound), {launches} launches "
+        f"per sort, {per_lookup} per lookup; the whole lookup "
+        f"(searchsorted_via_sort) {res['lookup_ms']:.3f} ms, the plain binary "
+        f"search {res['bsearch_ms']:.3f} ms{lib_txt} (kernel runs "
+        f"{[round(x, 3) for x in kern]}, plain runs {[round(x, 3) for x in plain]}"
+        f"); every operand equal to the plain sort's, lower bounds equal to "
+        f"the binary search's")
+    del ops, got, want, table, queries, biased
+    torch.cuda.empty_cache()
+    return res
+
+
 def kernel_split(torch, fn):
     """Device time of each kernel of one call of fn, by torch.profiler:
     {kernel name: (launches, ms)}."""
@@ -389,9 +533,6 @@ def phase_profile(torch, cli, argv, ref_skf, t_build, phase, what):
     """Two more builds of `argv`, warm: unprofiled, then per step span
     and per kernel times under the profiler. Both must write the bytes
     of ref_skf."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     def build(tag):
         out = ref_skf[:-4] + f"_{tag}"
         t0 = time.perf_counter()
@@ -403,9 +544,26 @@ def phase_profile(torch, cli, argv, ref_skf, t_build, phase, what):
         return wall
 
     t_warm = build("warm")
+    wall, spans, kernels = profile_call(torch, lambda: build("profiled"))
+    log(f"{phase}: {what} under torch.profiler: {wall:.3f} s wall "
+        f"(unprofiled: {t_warm:.3f} s warm, {t_build:.3f} s as the first "
+        f"build)")
+    log_profile(phase, "the build", wall, spans, kernels)
+
+
+def profile_call(torch, fn):
+    """fn() under torch.profiler: (wall s, {ska:: span: (calls, us) of
+    host time}, {device item: (calls, us)})."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        wall = build("profiled")
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     spans, kernels = {}, {}
     for e in prof.events():
         us = e.time_range.elapsed_us()
@@ -418,18 +576,22 @@ def phase_profile(torch, cli, argv, ref_skf, t_build, phase, what):
             n, t = kernels.get(e.name, (0, 0.0))
             kernels[e.name] = (n + 1, t + us)
     check(kernels, "the profiler saw no device activity")
+    return wall, spans, kernels
+
+
+def log_profile(phase, what, wall, spans, kernels, top=10):
+    """Each span's host wall time, the card's busy time and idle share
+    over `wall`, and the largest device items."""
     busy = sum(t for _, t in kernels.values()) / 1e6
     in_spans = sum(t for _, t in spans.values()) / 1e6
-    log(f"{phase}: {what} under torch.profiler: {wall:.3f} s wall "
-        f"(unprofiled: {t_warm:.3f} s warm, {t_build:.3f} s as the first "
-        f"build); spans add up to {in_spans:.3f} s, the other "
-        f"{wall - in_spans:.3f} s is outside every span")
+    if spans:
+        log(f"{phase}: spans add up to {in_spans:.3f} s, the other "
+            f"{wall - in_spans:.3f} s is outside every span")
     for name, (n, t) in sorted(spans.items(), key=lambda kv: -kv[1][1]):
         log(f"{phase}:   span {name}: {t / 1e3:.3f} ms host wall ({n} calls)")
     log(f"{phase}: device busy {busy * 1e3:.3f} ms of {wall:.3f} s wall: the "
-        f"card ran nothing for {100 * (1 - busy / wall):.1f}% of the build")
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:10]
-    for name, (n, t) in top:
+        f"card ran nothing for {100 * (1 - busy / wall):.1f}% of {what}")
+    for name, (n, t) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:top]:
         log(f"{phase}:   device {t / 1e3:.3f} ms in {n} calls: {name[:100]}")
 
 
@@ -597,6 +759,63 @@ def phase_reads(torch, cli, torchinit, cohort, seed):
 # ---------------------------------------------------------------- phase 6
 
 
+def card_run(torch, cli, torchinit, argv, env):
+    """One CLI run on the card in this process, under the extra
+    environment `env`, launch counters zeroed just before it and read
+    just after: (stdout, wall s, launches)."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        torchinit.reset_launch_counts()
+        t0 = time.perf_counter()
+        stdout, _ = quiet(cli.main, argv + ["--device", DEVICE])
+        torch.cuda.synchronize()
+        return stdout, time.perf_counter() - t0, torchinit.launch_counts()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+
+
+def card_and_cpu(torch, cli, torchinit, runs):
+    """Each (tag, argv, env) of `runs` on the card (card_run) and on the
+    plain CPU route, `python -m ska_tpu_torch ... --device cpu` in a
+    process of its own; the CPU runs go in a thread beside the card's,
+    so the card's wall times share the host's cores. "{dev}" in argv
+    stands for the device. Returns ({tag: (stdout, s, launches)},
+    {tag: (stdout, s)})."""
+
+    def argv(args, dev):
+        return [a.format(dev=dev) for a in args]
+
+    def cpu_route():
+        res = {}
+        for tag, args, env in runs:
+            t0 = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-m", "ska_tpu_torch", *argv(args, "cpu"),
+                 "--device", "cpu"],
+                cwd=REPO, env=dict(os.environ, **env), capture_output=True,
+                text=True, timeout=900)
+            check(r.returncode == 0, f"{tag} on the CPU route: {r.stderr[-2000:]}")
+            res[tag] = (r.stdout, time.perf_counter() - t0)
+        return res
+
+    with cf.ThreadPoolExecutor(1) as pool:
+        cpu = pool.submit(cpu_route)
+        card = {tag: card_run(torch, cli, torchinit, argv(args, DEVICE), env)
+                for tag, args, env in runs}
+        return card, cpu.result()
+
+
+def same_bytes(a, b):
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        data = fa.read()
+        return data == fb.read(), len(data)
+
+
 def phase_exact(torch, cli, torchinit, cohort, seed):
     """Reads at 200,000 bases per genome, card against the plain CPU
     route, .skf and stdout byte for byte."""
@@ -604,60 +823,30 @@ def phase_exact(torch, cli, torchinit, cohort, seed):
                for s in range(len(DEPTHS))]
     tsv, samples, n_reads = write_reads(genomes, DEPTHS, seed + 1, "small")
     d = os.path.dirname(tsv)
+    env = {"SKA_MAX_CHUNK_BASES": str(SMALL_CAP)}
+
+    def out(tag):
+        return ["-o", os.path.join(d, f"{tag}_{{dev}}")]
+
     runs = [
-        ("auto31", ["build", "-f", tsv, "-k", "31", "--min-count", "auto"]),
+        ("auto31", ["build", "-f", tsv, "-k", "31", "--min-count", "auto",
+                    *out("auto31")], env),
         ("k63", ["build", "-f", tsv, "-k", "63", "--min-count", "1",
-                 "--qual-filter", "middle"]),
-        ("cov00", ["cov", samples[0][1], samples[0][2]]),
-        ("cov04", ["cov", samples[4][1], samples[4][2]]),
+                 "--qual-filter", "middle", *out("k63")], env),
+        ("cov00", ["cov", samples[0][1], samples[0][2]], env),
+        ("cov04", ["cov", samples[4][1], samples[4][2]], env),
     ]
-    env = dict(os.environ, SKA_MAX_CHUNK_BASES=str(SMALL_CAP))
-
-    def argv(tag, args, dev):
-        out = ["-o", os.path.join(d, f"{tag}_{dev}")] if args[0] == "build" else []
-        return args + out + ["--device", dev]
-
-    # the plain CPU route, each run in a process of its own, beside the
-    # card's runs (so the card's wall times here share the host's cores)
-    def cpu_route():
-        res = {}
-        for tag, args in runs:
-            t0 = time.perf_counter()
-            r = subprocess.run(
-                [sys.executable, "-m", "ska_tpu_torch", *argv(tag, args, "cpu")],
-                cwd=REPO, env=env, capture_output=True, text=True, timeout=900)
-            check(r.returncode == 0, f"{tag} on the CPU route: {r.stderr[-2000:]}")
-            res[tag] = (r.stdout, time.perf_counter() - t0)
-        return res
-
-    with cf.ThreadPoolExecutor(1) as pool:
-        cpu = pool.submit(cpu_route)
-        card = {}
-        os.environ["SKA_MAX_CHUNK_BASES"] = str(SMALL_CAP)
-        try:
-            for tag, args in runs:
-                torchinit.reset_launch_counts()
-                t0 = time.perf_counter()
-                stdout, _ = quiet(cli.main, argv(tag, args, DEVICE))
-                torch.cuda.synchronize()
-                card[tag] = (stdout, time.perf_counter() - t0,
-                             torchinit.launch_counts())
-        finally:
-            del os.environ["SKA_MAX_CHUNK_BASES"]
-        cpu = cpu.result()
-    for tag, args in runs:
+    card, cpu = card_and_cpu(torch, cli, torchinit, runs)
+    for tag, args, _ in runs:
         stdout, t_card, launches = card[tag]
         for name, n in launches.items():
             check(n > 0, f"{tag}: kernel {name} was not launched")
         check(stdout == cpu[tag][0], f"{tag}: stdout differs from the CPU route's")
         what = "stdout"
         if args[0] == "build":
-            with open(os.path.join(d, f"{tag}_{DEVICE}.skf"), "rb") as a, \
-                    open(os.path.join(d, f"{tag}_cpu.skf"), "rb") as b:
-                size = len(a.read())
-                a.seek(0)
-                check(a.read() == b.read(),
-                      f"{tag}: .skf bytes differ from the plain CPU route's")
+            same, size = same_bytes(os.path.join(d, f"{tag}_{DEVICE}.skf"),
+                                    os.path.join(d, f"{tag}_cpu.skf"))
+            check(same, f"{tag}: .skf bytes differ from the plain CPU route's")
             what = f".skf ({size} bytes) and stdout"
         cut = stdout.count("\n")
         log(f"phase 6 [{tag}]: {what} equal to the plain CPU route's; card "
@@ -667,6 +856,248 @@ def phase_exact(torch, cli, torchinit, cohort, seed):
     windows = n_reads * (READ_LEN - 31 + 1)
     log(f"phase 6: {n_reads} reads; the card's auto31 build (fit included) "
         f"{windows / card['auto31'][1]:.0f} split k-mers/s end to end")
+
+
+# ---------------------------------------------------------------- phase 7
+
+
+def phase_map(torch, cli, torchinit, cohort):
+    """`ska map` of phase 3's .skf files to genome00.fa (a chromosome and
+    a plasmid) on the card, byte for byte against the plain CPU route;
+    the aln once more with the chromosome in k-1-overlap slices; then a
+    warm k=31 VCF map under torch.profiler."""
+    from ska_tpu_torch import ref as R
+    from ska_tpu_torch.io import skf
+
+    ref = cohort[0][0]
+    d = os.path.join(WORK, "map")
+    os.makedirs(d, exist_ok=True)
+    skfs = {k: os.path.join(WORK, f"k{k}.skf") for k in (31, 63)}
+
+    def run(tag, k, fmt, *flags):
+        return (tag, ["map", ref, skfs[k], "-f", fmt, *flags, "-o",
+                      os.path.join(d, f"{tag}_{{dev}}.{fmt}")], {})
+
+    runs = [run("k31_aln", 31, "aln"), run("k31_vcf", 31, "vcf"),
+            run("k31_masked", 31, "aln", "--ambig-mask", "--repeat-mask"),
+            run("k63_aln", 63, "aln")]
+    card, cpu = card_and_cpu(torch, cli, torchinit, runs)
+    launches = 0
+    for tag, args, _ in runs:
+        _, t_card, counts = card[tag]
+        fmt = args[4]
+        check(counts["radix_sort"] > 0, f"{tag}: the lookup launched no sort")
+        launches += counts["radix_sort"]
+        same, size = same_bytes(os.path.join(d, f"{tag}_{DEVICE}.{fmt}"),
+                                os.path.join(d, f"{tag}_cpu.{fmt}"))
+        check(same, f"{tag}: {fmt} bytes differ from the plain CPU route's")
+        log(f"phase 7 [{tag}]: {fmt} ({size} bytes) equal to the plain CPU "
+            f"route's; card {t_card:.3f} s wall, CPU route {cpu[tag][1]:.3f} s "
+            f"(a process of its own); launches {counts}")
+    # weed the reference's split k-mers (scanned on the card) from k31.skf
+    weed = [("weed", ["weed", skfs[31], ref, "-o",
+                      os.path.join(d, "weed_{dev}.skf")], {})]
+    (_, t_card, counts), = card_and_cpu(torch, cli, torchinit, weed)[0].values()
+    same, size = same_bytes(os.path.join(d, f"weed_{DEVICE}.skf"),
+                            os.path.join(d, "weed_cpu.skf"))
+    check(same, "weed: .skf bytes differ from the plain CPU route's")
+    log(f"phase 7 [weed]: .skf ({size} bytes) equal to the plain CPU "
+        f"route's; card {t_card:.3f} s wall; launches {counts}")
+    tag, args, _ = run("k31_sliced", 31, "aln")
+    _, t_card, counts = card_run(
+        torch, cli, torchinit, [a.format(dev=DEVICE) for a in args],
+        {"SKA_MAX_CHUNK_BASES": str(MAP_SLICE_CAP)})
+    check(counts["radix_sort"] > 0, f"{tag}: the lookup launched no sort")
+    launches += counts["radix_sort"]
+    same, size = same_bytes(os.path.join(d, f"k31_sliced_{DEVICE}.aln"),
+                            os.path.join(d, f"k31_aln_{DEVICE}.aln"))
+    check(same, "the sliced reference scan changed the alignment")
+    log(f"phase 7 [{tag}]: SKA_MAX_CHUNK_BASES={MAP_SLICE_CAP}, the "
+        f"chromosome in slices: aln equal to the unsliced run's; card "
+        f"{t_card:.3f} s wall; launches {counts}")
+
+    # where the time of one map goes: the steps of api.map_mode, warm
+    mapped = {}
+
+    def map_vcf():
+        from torch.profiler import record_function
+
+        with record_function("ska::load"):
+            arr = skf.load(skfs[31])
+        ska_ref = R.RefSka(31, ref, arr.rc, False, False, device=DEVICE)
+        ska_ref.map(arr)
+        with open(os.path.join(d, "k31_profiled.vcf"), "w") as fh:
+            ska_ref.write_vcf(fh)
+        mapped["n"] = len(ska_ref.mapped_pos)
+        mapped["queries"] = ska_ref.ksize
+        mapped["keys"] = arr.ksize
+
+    wall, spans, kernels = profile_call(torch, map_vcf)
+    same, _ = same_bytes(os.path.join(d, "k31_profiled.vcf"),
+                         os.path.join(d, f"k31_vcf_{DEVICE}.vcf"))
+    check(same, "the profiled map wrote other VCF bytes")
+    log(f"phase 7: k=31 VCF map under torch.profiler: {wall:.3f} s wall; "
+        f"{mapped['n']} of the reference's {mapped['queries']} split k-mers "
+        f"mapped to the {mapped['keys']} keys of k31.skf")
+    log_profile("phase 7", "the map", wall, spans, kernels)
+    return launches
+
+
+# ---------------------------------------------------------------- phase 8
+
+
+def gram_sites(torch, seed, dev):
+    """A cohort whose sites follow a tree: 512 samples, the leaves of a
+    random binary tree (each clade a run of a random leaf order, split at
+    a uniform point), x 2^20 sites. Each site has one majority base and
+    one mutation on a branch drawn in proportion to its (exponential)
+    length, whose clade carries another base. Gaps are missing blocks:
+    each sample misses each block of 256 sites with probability 3%; 0.1%
+    of cells are IUPAC letters (R, Y, K, M, S, W). Made on the card from
+    `seed`; returns numpy uint8 (S, n)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    S, n = 1 << GRAM_SITES_LOG2, GRAM_SAMPLES
+    clades, stack = [], [(0, n)]
+    while stack:
+        a, b = stack.pop()
+        if b - a > 1:
+            m = int(rng.integers(a + 1, b))
+            stack += [(a, m), (m, b)]
+            clades += [(a, m), (m, b)]
+    clades = np.array(clades)
+    length = rng.exponential(size=len(clades))
+    lo, hi = torch.from_numpy(clades[rng.choice(
+        len(clades), size=S, p=length / length.sum())].T.copy()).to(dev)
+    rank = torch.from_numpy(np.argsort(rng.permutation(n))).to(dev)
+    in_clade = (rank >= lo[:, None]) & (rank < hi[:, None])
+    g = torch.Generator(device=dev).manual_seed(seed)
+    base = torch.tensor(list(b"ACGT"), dtype=torch.uint8, device=dev)
+    major = torch.randint(0, 4, (S, 1), generator=g, device=dev)
+    alt = (major + torch.randint(1, 4, (S, 1), generator=g, device=dev)) % 4
+    v = base[torch.where(in_clade, alt, major)]
+    miss = torch.rand((S // 256, n), generator=g, device=dev) < 0.03
+    v = torch.where(miss.repeat_interleave(256, dim=0), ord("-"), v)
+    iupac = torch.tensor(list(b"RYKMSW"), dtype=torch.uint8, device=dev)
+    amb = torch.rand((S, n), generator=g, device=dev) < 0.001
+    v = torch.where(amb, iupac[torch.randint(0, 6, (S, n), generator=g,
+                                             device=dev)], v)
+    return v.cpu().numpy()
+
+
+def dedupe_rows(compact):
+    """Exact unique rows and their counts, as the JAX package dedupes
+    before its weighted Gram: 16 4-bit class codes packed per u64 word,
+    then a lexsort of the words."""
+    import numpy as np
+
+    S, n = compact.shape
+    nw = -(-n // 16)
+    packed = np.zeros((S, nw), np.uint64)
+    for j in range(16):
+        cols = np.arange(j, n, 16)
+        if len(cols):
+            packed[:, : len(cols)] |= (compact[:, cols].astype(np.uint64)
+                                       << np.uint64(4 * j))
+    order = np.lexsort(tuple(packed[:, w] for w in range(nw - 1, -1, -1)))
+    sp = packed[order]
+    first = np.ones(S, bool)
+    np.any(sp[1:] != sp[:-1], axis=1, out=first[1:])
+    starts = np.flatnonzero(first)
+    return compact[order[starts]], np.diff(np.append(starts, S))
+
+
+def gram_dedupe_f32(torch, D, v, dev, chunk=1 << 15):
+    """The plain version of class_gram, by the JAX package's other route:
+    rows deduplicated on the host, then per chunk one f32 product of the
+    one-hot scaled by each row's count (exact: every sum is an integer
+    below 2^24, in full f32). Returns (int64 Gram, distinct rows)."""
+    import numpy as np
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    S, n = v.shape
+    compact, present, K, width, _ = D.compact_classes(v)
+    rows, counts = dedupe_rows(compact)
+    Gc = torch.zeros((n * width, n * width), dtype=torch.int64, device=dev)
+    cols = torch.arange(n, device=dev) * width
+    for s0 in range(0, len(rows), chunk):
+        c = torch.from_numpy(rows[s0 : s0 + chunk]).to(dev).long()
+        X = torch.zeros((len(c), n * width), dtype=torch.float32, device=dev)
+        X.scatter_(1, cols + c, 1.0)
+        w = torch.from_numpy(counts[s0 : s0 + chunk]).to(dev).float()
+        Gc += torch.matmul((X * w[:, None]).t(), X).to(torch.int64)
+    G = D.scatter_gram_16(Gc.cpu().numpy(), present, K, width, n)
+    return G, len(rows)
+
+
+def phase_distance(torch, cli, torchinit, seed):
+    """`ska distance` of k31.skf on the card, TSV bytes against the plain
+    CPU route; then the class Gram of k31.skf's sites and of a 512-sample
+    cohort on a tree, each by the port (int8) and by the plain version
+    (host dedupe, weighted f32), equal as int64, with both times."""
+    import numpy as np
+
+    from ska_tpu_torch import api
+    from ska_tpu_torch import distance as D
+    from ska_tpu_torch.constants import FILTER_NOCONST
+    from ska_tpu_torch.io import skf
+
+    d = os.path.join(WORK, "distance")
+    os.makedirs(d, exist_ok=True)
+    k31 = os.path.join(WORK, "k31.skf")
+
+    def run(tag, *flags):
+        return (tag, ["distance", k31, *flags, "-o",
+                      os.path.join(d, f"{tag}_{{dev}}.tsv")], {})
+
+    runs = [run("plain"), run("min_freq", "--min-freq", "0.5"),
+            run("ambig", "--allow-ambiguous")]
+    card, cpu = card_and_cpu(torch, cli, torchinit, runs)
+    for tag, _, _ in runs:
+        same, size = same_bytes(os.path.join(d, f"{tag}_{DEVICE}.tsv"),
+                                os.path.join(d, f"{tag}_cpu.tsv"))
+        check(same, f"distance {tag}: TSV bytes differ from the CPU route's")
+        log(f"phase 8 [{tag}]: TSV ({size} bytes) equal to the plain CPU "
+            f"route's; card {card[tag][1]:.3f} s wall, CPU route "
+            f"{cpu[tag][1]:.3f} s (a process of its own)")
+
+    # the sites that `distance k31.skf` holds after its constant-site filter
+    arr = skf.load(k31)
+    api.apply_filters(arr, 0.0, False, FILTER_NOCONST, False, False)
+    t0 = time.perf_counter()
+    tree = gram_sites(torch, seed, torch.device(DEVICE))
+    log(f"phase 8: {tree.shape[0]} sites x {tree.shape[1]} samples on a "
+        f"tree made in {time.perf_counter() - t0:.1f} s")
+    for tag, v in (("k31.skf", arr.variants), ("tree", tree)):
+        S, n = v.shape
+        _, _, K, width, _ = D.compact_classes(v)
+        P = n * width
+        res = {}
+        wall_port, _, kernels_port = profile_call(
+            torch, lambda: res.update(port=D.class_gram(v, DEVICE)))
+        wall_plain, _, kernels_plain = profile_call(
+            torch, lambda: res.update(plain=gram_dedupe_f32(
+                torch, D, v, torch.device(DEVICE))))
+        G, rows = res["plain"]
+        check(np.array_equal(res["port"], G),
+              f"{tag}: class_gram differs from the deduplicated f32 Gram")
+        check(int(np.trace(res["port"].reshape(n, 16, n, 16)[0, :, 0, :])) == S,
+              f"{tag}: Gram diagonal counts")
+        log(f"phase 8 [{tag}]: {S} sites x {n} samples, {K} classes, width "
+            f"{width}, {rows} distinct rows; the two {n * 16}^2 int64 Grams "
+            f"are equal")
+        log(f"phase 8 [{tag}]: class_gram (int8) {wall_port:.3f} s wall, "
+            f"matmul bound {2 * S * P * P / INT8_OPS_PER_S * 1e3:.3f} ms "
+            f"(2 x {S} x {P}^2 at {INT8_OPS_PER_S / 1e12:.0f} T/s); plain "
+            f"(host dedupe, weighted f32) {wall_plain:.3f} s wall, bound "
+            f"{2 * rows * P * P / PEAK_OPS_PER_S * 1e3:.3f} ms (2 x {rows} x "
+            f"{P}^2 at {PEAK_OPS_PER_S / 1e12:.0f} T/s)")
+        log_profile("phase 8", f"class_gram of {tag}", wall_port, {},
+                    kernels_port, top=5)
+        log_profile("phase 8", f"the plain Gram of {tag}", wall_plain, {},
+                    kernels_plain, top=5)
 
 
 # ---------------------------------------------------------------- main
@@ -682,6 +1113,7 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch finds no CUDA device; it runs on a card only")
     from ska_tpu_torch import cli, kernels, torchinit
+    from ska_tpu_torch.ops import keys as TK
     from ska_tpu_torch.ops import sort as SO
 
     dev = torch.device("cuda")
@@ -710,6 +1142,9 @@ def main():
     # phase 5's global (key, sample id) sort: 2 samples x 2^26 rows
     reads_res = phase_sort(torch, SO, 1, args.seed + 20, dev,
                            READS_SORT_LOG2, 2)
+    # map's lookup: 2^21 reference split k-mers in 2^23 keys
+    lookup_res = {W: phase_lookup(torch, SO, TK, W, args.seed, dev)
+                  for W in (1, 2)}
 
     # phase 3: the main path
     t0 = time.perf_counter()
@@ -733,6 +1168,10 @@ def main():
     phase_exact(torch, cli, torchinit, cohort, args.seed)
     log(f"end to end: {rate_reads:.0f} split k-mers/s for the 5-sample reads "
         "build (k=31)")
+
+    # phase 7: map; phase 8: distance
+    launches_map = phase_map(torch, cli, torchinit, cohort)
+    phase_distance(torch, cli, torchinit, args.seed)
     check("jax" not in sys.modules, "jax was imported")
 
     w1, w2 = sort_res[1], sort_res[2]
@@ -742,9 +1181,10 @@ def main():
         "source": "ska_tpu_torch/csrc/radix_sort.cu",
         "replaces": "ska_tpu/ops/sort.py:178",
         "launches": (launches31["radix_sort"] + launches63["radix_sort"]
-                     + launches_reads["radix_sort"]),
+                     + launches_reads["radix_sort"] + launches_map),
         "max_abs_err": max(r["max_abs_err"] for r in (
-            *sort_res.values(), *limbs_res.values(), reads_res)),
+            *sort_res.values(), *limbs_res.values(), reads_res,
+            *lookup_res.values())),
         "ms": w1["ms"],
         "plain_ms": w1["plain_ms"],
         "bound_ms": w1["bound_ms"],
@@ -770,6 +1210,16 @@ def main():
         "reads_global_plain_ms": reads_res["plain_ms"],
         "reads_global_bound_ms": reads_res["bound_ms"],
         "reads_global_launches_per_sort": reads_res["launches_per_sort"],
+        "launches_map": launches_map,
+        "lookup_ms": lookup_res[1]["ms"],
+        "lookup_plain_ms": lookup_res[1]["plain_ms"],
+        "lookup_bound_ms": lookup_res[1]["bound_ms"],
+        "lookup_library_ms": lookup_res[1]["library_ms"],
+        "lookup_launches_per_lookup": lookup_res[1]["launches_per_lookup"],
+        "lookup_ms_w2": lookup_res[2]["ms"],
+        "lookup_plain_ms_w2": lookup_res[2]["plain_ms"],
+        "lookup_bound_ms_w2": lookup_res[2]["bound_ms"],
+        "lookup_launches_per_lookup_w2": lookup_res[2]["launches_per_lookup"],
     }]}
     print(smi)
     print(json.dumps(kernels_line))

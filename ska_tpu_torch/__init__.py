@@ -12,7 +12,9 @@ hand-written Hopper radix sort here (``csrc/radix_sort.cu``, wrapped by
 
 Ported so far: ``ska build`` of FASTA and paired FASTQ samples (count
 and quality filters, samples over the dispatch cap built in chunks,
-``--min-count auto``), ``ska align`` and ``ska cov``
-(``python -m ska_tpu_torch build|align|cov``). The package never imports
-jax.
+``--min-count auto``), ``ska align``, ``ska cov``, ``ska map`` (the
+reference scan on the device, the lookup on the radix sort kernel),
+``ska distance`` (the class Gram on the device) and ``ska weed``
+(``python -m ska_tpu_torch build|align|cov|map|distance|weed``). The
+package never imports jax.
 """

@@ -1,7 +1,10 @@
 """Mode orchestration of the port (counterpart of ska_tpu/api.py).
 
 ``build`` runs the port's device build; ``align`` is host numpy and the
-host library's row filters, a copy of the JAX package's.
+host library's row filters, a copy of the JAX package's; ``map_mode``
+(reference scan and lookup), ``distance_mode`` (the class Gram) and
+``weed_mode`` (the weed FASTA's scan) run their device parts on
+``device``.
 """
 
 import math
@@ -16,6 +19,7 @@ from .constants import (
     DEFAULT_MINCOUNT,
     DEFAULT_MINQUAL,
     FILTER_NOCONST,
+    FILTER_NOFILTER,
     QUAL_STRICT,
 )
 from .io import fastx, skf
@@ -94,3 +98,74 @@ def align(
         arr, min_freq, filter_ambig_as_missing, filter_type, ambig_mask, ignore_const_gaps
     )
     arr.write_fasta(out_fh)
+
+
+def map_mode(
+    arr: SkaArray,
+    reference: str,
+    out_fh,
+    fmt: str = "aln",
+    ambig_mask: bool = False,
+    repeat_mask: bool = False,
+    device=None,
+):
+    """`ska map` (generic_modes.rs:56-84)."""
+    from .ref import RefSka
+
+    ska_ref = RefSka(arr.k, reference, arr.rc, ambig_mask, repeat_mask,
+                     device=device)
+    ska_ref.map(arr)
+    if fmt == "aln":
+        ska_ref.write_aln(out_fh)
+    elif fmt == "vcf":
+        ska_ref.write_vcf(out_fh)
+    else:
+        raise ValueError(f"Unknown format {fmt}")
+
+
+def distance_mode(arr: SkaArray, out_fh, min_freq: float, filt_ambig: bool,
+                  device=None):
+    """`ska distance` (generic_modes.rs:136-189): population min-freq
+    filter, then constant-site removal feeds the match denominator."""
+    if min_freq * arr.nsamples >= 1.0:
+        apply_filters(arr, min_freq, False, FILTER_NOFILTER, False, False)
+    constant = apply_filters(arr, 0.0, False, FILTER_NOCONST, False, False)
+
+    dists = arr.distance(float(constant), filt_ambig, device)
+    out_fh.write(
+        "Sample1\tSample2\tDistance\tMismatches (proportion)\tMatch count\tMismatch count\n"
+    )
+    names = arr.names
+    for i, row in enumerate(dists):
+        for d, j in zip(row, range(i + 1, len(names))):
+            out_fh.write(f"{names[i]}\t{names[j]}\t{d}\n")
+
+
+def weed_mode(
+    arr: SkaArray,
+    weed_file: Optional[str],
+    reverse: bool,
+    min_freq: float,
+    filter_ambig_as_missing: bool,
+    filter_type: str,
+    ambig_mask: bool,
+    ignore_const_gaps: bool,
+    output: str,
+    device=None,
+):
+    """`ska weed` (generic_modes.rs:214-267): the weed k-mers come from a
+    RefSka scan of the weed FASTA on `device`; threshold =
+    floor(n * f)."""
+    if weed_file is not None:
+        from .ref import RefSka
+
+        weed_ref = RefSka(arr.k, weed_file, arr.rc, ambig_mask=False,
+                          repeat_mask=False, device=device)
+        arr.weed(weed_ref.kmers, reverse)
+
+    threshold = math.floor(arr.nsamples * min_freq)
+    if threshold > 0 or filter_type != FILTER_NOFILTER or ambig_mask or ignore_const_gaps:
+        arr.filter(
+            threshold, filter_ambig_as_missing, filter_type, ambig_mask, ignore_const_gaps
+        )
+    skf.save(arr, output, add_suffix=False)

@@ -1,5 +1,6 @@
 """Static multi-sample split k-mer array (the `.skf` content); the port's
-copy of what `build`, `load` and `align` use of ska_tpu/array.py.
+copy of what `build`, `load`, `align`, `map`, `distance` and `weed` use
+of ska_tpu/array.py.
 
 Counterpart of reference MergeSkaArray (src/merge_ska_array.rs:108-126):
 rows are split k-mers (sorted by packed key), columns are samples,
@@ -16,6 +17,7 @@ from .constants import SKA_VERSION
 from .encoding import IS_AMBIGUOUS
 from .io import native
 from .io.fastx import write_fasta
+from .ops import npkeys as K
 
 
 @dataclass
@@ -41,6 +43,22 @@ class SkaArray:
     @property
     def kbits(self) -> int:
         return 64 * self.keys.shape[1]
+
+    def sorted_view(self):
+        """(sorted_keys, row_permutation) for lookups; perm None means
+        the identity.
+
+        Row storage order is user-visible (alignment column order), so
+        the array itself is not reordered. The .skf files of both
+        packages store keys sorted, so one sortedness check usually
+        replaces the argsort; reference-written or weeded arrays take
+        the lexsort. The fast path returns self.keys itself, the other
+        a fresh copy: treat either as read-only.
+        """
+        if K.np_lex_is_sorted(self.keys):
+            return self.keys, None
+        perm = K.np_lex_argsort(self.keys)
+        return self.keys[perm], perm
 
     # --- row maintenance (merge_ska_array.rs:139-163) ---------------------
 
@@ -82,12 +100,49 @@ class SkaArray:
             self.variants = np.where(amb, np.uint8(ord("N")), self.variants)
         return removed
 
+    # --- weed (merge_ska_array.rs:452-487) --------------------------------
+
+    def weed(self, weed_keys: np.ndarray, reverse: bool):
+        """Remove rows whose key is in weed_keys (or keep only those)."""
+        if len(weed_keys):
+            wk = np.unique(np.asarray(weed_keys, dtype=np.uint64), axis=0)
+            found = _np_member(self.keys, wk)
+        else:
+            found = np.zeros(self.ksize, dtype=bool)
+        self._take_rows(found if reverse else ~found)
+
     # --- alignment output (merge_ska_array.rs:499-517) ---------------------
 
     def write_fasta(self, fh):
         vt = np.ascontiguousarray(self.variants.T)
         for name, row in zip(self.names, vt):
             write_fasta(name, row.tobytes(), fh)
+
+    # --- distances (merge_ska_array.rs:416-438, 587-632) -------------------
+
+    def distance(self, constant: float, filt_ambig: bool, device=None):
+        """Pairwise distances from the 16-class co-occurrence Gram on
+        `device` (distance.py)."""
+        from .distance import pairwise_stats
+
+        return pairwise_stats(self.variants, constant, filt_ambig, device)
+
+
+def _np_member(keys: np.ndarray, sorted_set: np.ndarray) -> np.ndarray:
+    """Membership of (n, W) keys in the sorted unique (m, W) set."""
+    if sorted_set.ndim == 1:
+        sorted_set = sorted_set[:, None]
+    n, W = keys.shape
+    if len(sorted_set) == 0:
+        return np.zeros(n, dtype=bool)
+    if W == 1:
+        idx = np.searchsorted(sorted_set[:, 0], keys[:, 0])
+        idx = np.clip(idx, 0, len(sorted_set) - 1)
+        return sorted_set[idx, 0] == keys[:, 0]
+    comb_set = _combine128(sorted_set)
+    comb_q = _combine128(keys)
+    idx = np.clip(np.searchsorted(comb_set, comb_q), 0, len(comb_set) - 1)
+    return comb_set[idx] == comb_q
 
 
 def _combine128(arr):

@@ -1,4 +1,4 @@
-"""``python -m ska_tpu_torch build|align|cov``.
+"""``python -m ska_tpu_torch build|align|cov|map|distance|weed``.
 
 The grammar is the JAX package's, whole (``build_parser``, a copy of
 ska_tpu/cli.py's mirror of the reference's clap CLI, src/cli.rs:167-426),
@@ -7,7 +7,9 @@ anywhere on the line. Subcommands that are not ported yet are refused.
 """
 
 import argparse
+import contextlib
 import logging
+import os
 import sys
 
 from .constants import (
@@ -26,7 +28,7 @@ from .constants import (
     check_k,
 )
 
-PORTED = ("build", "align", "cov")
+PORTED = ("build", "align", "cov", "map", "distance", "weed")
 log = logging.getLogger("ska_tpu_torch")
 
 
@@ -211,10 +213,9 @@ def main(argv=None):
         cutoff = cov.fit_histogram()
         cov.plot_hist()
         print(f"Estimated cutoff\t{cutoff}", file=sys.stderr)
-    else:
+    elif args.command == "align":
         arr = api.load_array(args.input, device=opts.device)
-        fh = open(args.output, "wb") if args.output else sys.stdout.buffer
-        try:
+        with _ostream(args.output, binary=True) as fh:
             api.align(
                 arr,
                 fh,
@@ -224,11 +225,48 @@ def main(argv=None):
                 min_freq=args.min_freq,
                 filter_ambig_as_missing=args.filter_ambig_as_missing,
             )
+    elif args.command == "map":
+        if args.threads is not None:
+            # the AlnWriter's sample threads (ref.RefSka.pseudoalignment)
+            os.environ["SKA_THREADS"] = str(args.threads)
+        arr = api.load_array(args.input, device=opts.device)
+        with _ostream(args.output, binary=args.format == "aln") as fh:
+            api.map_mode(arr, args.reference, fh, args.format,
+                         args.ambig_mask, args.repeat_mask, device=opts.device)
+    elif args.command == "distance":
+        arr = skf.load(args.skf_file)
+        with _ostream(args.output) as fh:
+            api.distance_mode(arr, fh, args.min_freq, not args.allow_ambiguous,
+                              device=opts.device)
+    else:
+        arr = skf.load(args.skf_file)
+        api.weed_mode(
+            arr,
+            args.weed_file,
+            args.reverse,
+            args.min_freq,
+            args.filter_ambig_as_missing,
+            args.filter,
+            args.ambig_mask,
+            args.no_gap_only_sites,
+            args.output or args.skf_file,
+            device=opts.device,
+        )
+
+
+@contextlib.contextmanager
+def _ostream(output, binary=False):
+    """The output file (closed after), or stdout (flushed after): bytes
+    for alignments, text for VCF and TSV."""
+    if output is None:
+        fh = sys.stdout.buffer if binary else sys.stdout
+        try:
+            yield fh
         finally:
-            if args.output:
-                fh.close()
-            else:
-                fh.flush()
+            fh.flush()
+    else:
+        with open(output, "wb" if binary else "w") as fh:
+            yield fh
 
 
 def _resolve_min_count(args, input_files, rc, device) -> int:

@@ -6,8 +6,9 @@
 // `build`, `load` and `align` call, kept verbatim so that both write and
 // read the same bytes: the greedy snappy compressor in particular fixes
 // the .skf bytes. The multi-threaded frame decoder (SKA_THREADS), the
-// byte-narrow and u128 CBOR encoders and the pseudoalignment writer are
-// not copied: the port's path does not call them. Plain C ABI for ctypes.
+// byte-narrow and u128 CBOR encoders are not copied: the port's path
+// does not call them; the pseudoalignment writer is in aln_write.cpp.
+// Plain C ABI for ctypes.
 
 #include <cstdint>
 #include <cstring>

@@ -16,6 +16,7 @@ from .. import kernels
 _u8p = ctypes.POINTER(ctypes.c_uint8)
 _u64p = ctypes.POINTER(ctypes.c_uint64)
 _i64p = ctypes.POINTER(ctypes.c_int64)
+_i32p = ctypes.POINTER(ctypes.c_int32)
 _LL = ctypes.c_longlong
 _LIB = None
 
@@ -51,6 +52,10 @@ def _lib() -> ctypes.CDLL:
             _LL, _LL, ctypes.c_int, ctypes.c_int,
             ctypes.c_char_p,  # version text
             _LL]
+        lib.ska_aln_write.restype = ctypes.c_int  # 0 ok, -2 allocation failure
+        lib.ska_aln_write.argtypes = [
+            _u8p, _i64p, ctypes.c_int64, _i32p, _i64p, _u8p, ctypes.c_int64,
+            ctypes.c_int64, _u8p, ctypes.c_int, _i64p, ctypes.c_int64, _u8p]
         _LIB = lib
     return _LIB
 
@@ -223,3 +228,31 @@ def skf_save(path, keys, variants, counts, names, k, rc, ska_version):
         int(k), 1 if rc else 0, ver, len(ver))
     if rcv != 0:
         raise OSError(f"skf save: could not write {path} (code {rcv})")
+
+
+def aln_write(ref_concat, chrom_len, m_chrom, m_pos, bases, half,
+              is_ambig_tbl, mask_ambig, repeat_coors):
+    """One sample's pseudoalignment (the AlnWriter state machine,
+    csrc/host/aln_write.cpp): a uint8 array as long as the reference.
+    ctypes releases the GIL around the call, so samples may run in
+    threads."""
+    ref = np.ascontiguousarray(ref_concat, dtype=np.uint8)
+    out = np.full(len(ref), ord("-"), dtype=np.uint8)
+    chrom_len = np.ascontiguousarray(chrom_len, dtype=np.int64)
+    m_chrom = np.ascontiguousarray(m_chrom, dtype=np.int32)
+    m_pos = np.ascontiguousarray(m_pos, dtype=np.int64)
+    bases = np.ascontiguousarray(bases, dtype=np.uint8)
+    if not len(m_chrom) == len(m_pos) == len(bases):
+        raise ValueError("aln_write: hit arrays differ in length")
+    tab = np.ascontiguousarray(is_ambig_tbl, dtype=np.uint8)
+    reps = np.ascontiguousarray(repeat_coors, dtype=np.int64)
+    rc = _lib().ska_aln_write(
+        ref.ctypes.data_as(_u8p), chrom_len.ctypes.data_as(_i64p),
+        len(chrom_len), m_chrom.ctypes.data_as(_i32p),
+        m_pos.ctypes.data_as(_i64p), bases.ctypes.data_as(_u8p), len(bases),
+        half, tab.ctypes.data_as(_u8p), 1 if mask_ambig else 0,
+        reps.ctypes.data_as(_i64p), len(reps), out.ctypes.data_as(_u8p))
+    if rc == -2:
+        raise MemoryError(
+            "ska map: pseudoalignment buffers exceeded available memory")
+    return out

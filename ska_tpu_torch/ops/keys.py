@@ -142,6 +142,81 @@ def sort_with(keys, payloads, extra_keys=()):
     return torch.stack(res[:W], dim=-1), res[W : W + nex], res[W + nex :]
 
 
+def lookup_operands(sorted_keys, queries):
+    """The sort operands of searchsorted_via_sort, in the radix kernel's
+    limbs-only layout: the W limbs of [queries; table], then int32
+    positions in that concatenation, then a uint8 that is 1 on the
+    queries."""
+    N, W = sorted_keys.shape
+    M = queries.shape[0]
+    from .sort import MAX_ROWS
+
+    if N + M >= MAX_ROWS:
+        raise ValueError(
+            f"lookup of {M} queries in {N} keys: the radix sort takes "
+            f"fewer than {MAX_ROWS} rows")
+    dev = queries.device
+    both = torch.cat([queries, sorted_keys], dim=0)
+    pos = torch.arange(M + N, dtype=torch.int32, device=dev)
+    is_q = (pos < M).to(torch.uint8)
+    return tuple(both[:, i].contiguous() for i in range(W)) + (pos, is_q)
+
+
+def lower_bounds(sorted_ops, M: int):
+    """Lower bounds from the sorted lookup operands: a query at sorted
+    position p has p - (queries before it) table keys before it; one
+    scatter by the carried positions puts the answers in query order
+    (non-query rows write to a dropped slot M)."""
+    W = len(sorted_ops) - 2
+    pos, is_q = sorted_ops[W], sorted_ops[W + 1].bool()
+    n = pos.shape[0]
+    rank = torch.cumsum(is_q, dim=0) - 1
+    table_before = torch.arange(n, device=pos.device) - rank
+    out = torch.empty(M + 1, dtype=torch.int64, device=pos.device)
+    out[torch.where(is_q, pos.long(), M)] = table_before
+    return out[:M]
+
+
+def searchsorted_via_sort(sorted_keys, queries):
+    """Lower-bound lookup of (M, W) queries in (N, W) sorted keys by one
+    sort of the concatenation, as the JAX package does it. Equals
+    np.searchsorted(side="left"): int64 answers in [0, N].
+
+    The JAX package sorts by (limbs, tag) with a query-first tag, then
+    sorts back into query order. Here the queries come first in
+    [queries; table] and the sort is stable, so sorting by the limbs
+    alone (``sort_ops`` with ``num_keys == W``: on a card the radix
+    kernel's limbs-only layout, or it raises) already puts every query
+    before the table keys equal to it; the sort back is one scatter.
+    Nothing is padded: the kernel takes any length below MAX_ROWS.
+    """
+    from .sort import sort_ops
+
+    W = sorted_keys.shape[1]
+    ops = lookup_operands(sorted_keys, queries)
+    return lower_bounds(sort_ops(ops, num_keys=W), queries.shape[0])
+
+
+def searchsorted(sorted_keys, queries):
+    """Branchless lower-bound binary search of (M, W) queries in (N, W)
+    sorted keys: int64 indices in [0, N], O(M log N) gathers. The plain
+    version that the lookup is held against."""
+    N = sorted_keys.shape[0]
+    M = queries.shape[0]
+    lo = torch.zeros(M, dtype=torch.int64, device=queries.device)
+    if N == 0:
+        return lo
+    hi = torch.full_like(lo, N)
+    for _ in range(max(1, int(np.ceil(np.log2(N + 1)))) + 1):
+        mid = (lo + hi) >> 1
+        # lower bound: key[mid] < query -> go right
+        lt = greater(queries, sorted_keys[mid.clamp(0, N - 1)])
+        live = lo < hi
+        lo = torch.where(lt & live, mid + 1, lo)
+        hi = torch.where(~lt & live, mid, hi)
+    return lo
+
+
 def from_numpy_keys(keys: np.ndarray, device=None):
     """(n, W) uint64 numpy keys -> int64 tensor with the same bits (a
     zero-copy view when it stays on the CPU)."""

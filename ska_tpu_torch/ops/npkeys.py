@@ -30,3 +30,26 @@ def np_lex_argsort(keys_np):
         keys_np = keys_np[:, None]
     cols = [keys_np[:, i] for i in range(keys_np.shape[1] - 1, -1, -1)]
     return np.lexsort(cols)
+
+
+def np_lex_is_sorted(keys_np) -> bool:
+    """True iff (N, W) uint64 keys are lexicographically non-decreasing:
+    one vectorized pass that lets SkaArray.sorted_view skip its argsort
+    (the .skf files of both packages store keys sorted; the reference's
+    files and weeded arrays may not)."""
+    keys_np = np.asarray(keys_np)
+    if keys_np.ndim == 1:
+        keys_np = keys_np[:, None]
+    if keys_np.shape[0] <= 1:
+        return True
+    a, b = keys_np[:-1], keys_np[1:]
+    if keys_np.shape[1] == 1:
+        return bool(np.all(a[:, 0] <= b[:, 0]))
+    # rows compare <= iff at the first differing limb a < b
+    lt = a[:, 0] < b[:, 0]
+    eq = a[:, 0] == b[:, 0]
+    for w in range(1, keys_np.shape[1] - 1):
+        lt |= eq & (a[:, w] < b[:, w])
+        eq &= a[:, w] == b[:, w]
+    last = keys_np.shape[1] - 1
+    return bool(np.all(lt | (eq & (a[:, last] <= b[:, last]))))
