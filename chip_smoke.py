@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (ska_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--dist-only]
 
 Run from the root of a checkout; it needs one CUDA card and refuses to
-run without one. Eight phases, and any failure ends the run with a
-non-zero exit (nothing is caught, nothing moves to the CPU):
+run without one. --dist-only runs phase 1, builds what phase 9 compares
+with, and phase 9: for a machine of several cards. Nine phases, and any failure ends the run with a
+non-zero exit (nothing is caught, nothing moves to the CPU or to gloo):
 
 1. Build the port's native libraries from the sources in the checkout,
    both at once: the radix sort kernel (nvcc) and the host library
@@ -83,6 +84,16 @@ non-zero exit (nothing is caught, nothing moves to the CPU):
    plain version (host dedupe as in the JAX package, then weighted f32
    products), equal as int64, with each one's time beside its matmul
    bound.
+9. The sharded paths (ska_tpu_torch/parallel/) on an NCCL group of
+   torch.cuda.device_count() ranks, one process per card (ranks 1.. are
+   processes of this script; with one card the group has one rank, and
+   NCCL takes no two ranks on one card), through their functions:
+   build_samples_distributed of phase 3's cohort at k=31 and k=63,
+   keys, variants, counts and names equal to its .skf files;
+   distributed_lookup of genome00.fa's split k-mers in k31.skf, equal to
+   the serial searchsorted_via_sort; distributed_class_gram of phase 8's
+   two inputs, equal to its int64 Grams; each call's wall time and radix
+   launches, and the k=31 build once more under torch.profiler.
 
 The last lines are the card's name and power limit (nvidia-smi), one
 JSON line with each kernel's launches, error and times, and the result
@@ -91,6 +102,7 @@ line {"ok": true, "device": {...}}.
 
 import argparse
 import concurrent.futures as cf
+import contextlib
 import json
 import os
 import statistics
@@ -554,7 +566,6 @@ def phase_profile(torch, cli, argv, ref_skf, t_build, phase, what):
 def profile_call(torch, fn):
     """fn() under torch.profiler: (wall s, {ska:: span: (calls, us) of
     host time}, {device item: (calls, us)})."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -564,6 +575,14 @@ def profile_call(torch, fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    return (wall,) + profile_events(prof)
+
+
+def profile_events(prof):
+    """({ska:: span: (calls, us) of host time}, {device item: (calls,
+    us)}) of a finished torch.profiler run."""
+    from torch.autograd import DeviceType
+
     spans, kernels = {}, {}
     for e in prof.events():
         us = e.time_range.elapsed_us()
@@ -576,7 +595,7 @@ def profile_call(torch, fn):
             n, t = kernels.get(e.name, (0, 0.0))
             kernels[e.name] = (n + 1, t + us)
     check(kernels, "the profiler saw no device activity")
-    return wall, spans, kernels
+    return spans, kernels
 
 
 def log_profile(phase, what, wall, spans, kernels, top=10):
@@ -1032,17 +1051,31 @@ def gram_dedupe_f32(torch, D, v, dev, chunk=1 << 15):
     return G, len(rows)
 
 
+def gram_inputs(torch, seed):
+    """The Gram's two inputs: the sites that `distance k31.skf` holds
+    after its constant-site filter, and the tree cohort (gram_sites)."""
+    from ska_tpu_torch import api
+    from ska_tpu_torch.constants import FILTER_NOCONST
+    from ska_tpu_torch.io import skf
+
+    arr = skf.load(os.path.join(WORK, "k31.skf"))
+    api.apply_filters(arr, 0.0, False, FILTER_NOCONST, False, False)
+    t0 = time.perf_counter()
+    tree = gram_sites(torch, seed, torch.device(DEVICE))
+    log(f"phase 8: {tree.shape[0]} sites x {tree.shape[1]} samples on a "
+        f"tree made in {time.perf_counter() - t0:.1f} s")
+    return {"k31.skf": arr.variants, "tree": tree}
+
+
 def phase_distance(torch, cli, torchinit, seed):
     """`ska distance` of k31.skf on the card, TSV bytes against the plain
     CPU route; then the class Gram of k31.skf's sites and of a 512-sample
     cohort on a tree, each by the port (int8) and by the plain version
-    (host dedupe, weighted f32), equal as int64, with both times."""
+    (host dedupe, weighted f32), equal as int64, with both times. Returns
+    {tag: (variants, the port's Gram)}."""
     import numpy as np
 
-    from ska_tpu_torch import api
     from ska_tpu_torch import distance as D
-    from ska_tpu_torch.constants import FILTER_NOCONST
-    from ska_tpu_torch.io import skf
 
     d = os.path.join(WORK, "distance")
     os.makedirs(d, exist_ok=True)
@@ -1063,14 +1096,8 @@ def phase_distance(torch, cli, torchinit, seed):
             f"route's; card {card[tag][1]:.3f} s wall, CPU route "
             f"{cpu[tag][1]:.3f} s (a process of its own)")
 
-    # the sites that `distance k31.skf` holds after its constant-site filter
-    arr = skf.load(k31)
-    api.apply_filters(arr, 0.0, False, FILTER_NOCONST, False, False)
-    t0 = time.perf_counter()
-    tree = gram_sites(torch, seed, torch.device(DEVICE))
-    log(f"phase 8: {tree.shape[0]} sites x {tree.shape[1]} samples on a "
-        f"tree made in {time.perf_counter() - t0:.1f} s")
-    for tag, v in (("k31.skf", arr.variants), ("tree", tree)):
+    grams = {}
+    for tag, v in gram_inputs(torch, seed).items():
         S, n = v.shape
         _, _, K, width, _ = D.compact_classes(v)
         P = n * width
@@ -1098,6 +1125,219 @@ def phase_distance(torch, cli, torchinit, seed):
                     kernels_port, top=5)
         log_profile("phase 8", f"the plain Gram of {tag}", wall_plain, {},
                     kernels_plain, top=5)
+        grams[tag] = (v, res["port"])
+    return grams
+
+
+# ---------------------------------------------------------------- phase 9
+
+
+def join_group(torch, rank, world, port):
+    """This process as rank `rank` of an NCCL group of `world` ranks, on
+    card rank % cards (made current before anything allocates)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    # NCCL sets its communicator up at the first collective and its
+    # point-to-point channels at the first all_to_all: here, not inside
+    # the first timed call
+    x = torch.zeros(world, device="cuda")
+    dist.all_reduce(x)
+    dist.all_to_all_single(torch.empty_like(x), x)
+    torch.cuda.synchronize()
+    return dist
+
+
+def dist_calls(torch, torchinit, grams, on_result,
+               profiled=contextlib.nullcontext()):
+    """The sharded calls of phase 9, in one order on every rank (each is
+    collective): the build of phase 3's cohort at k=31 and of its first 4
+    genomes at k=63, the k=31 build once more inside the context manager
+    `profiled`, the lookup of genome00.fa's split k-mers in k31.skf, and
+    the class Gram of phase 8's two inputs. on_result(tag, result,
+    wall s, radix launches) sees each."""
+    from ska_tpu_torch import api
+    from ska_tpu_torch.constants import DEFAULT_MINCOUNT, DEFAULT_MINQUAL, QUAL_STRICT
+    from ska_tpu_torch.io import fastx, skf
+    from ska_tpu_torch.parallel.postbuild import (
+        distributed_class_gram, distributed_lookup)
+    from ska_tpu_torch.ref import RefSka
+    from ska_tpu_torch.sample import build_samples_distributed
+    from ska_tpu_torch.sampletypes import QualOpts
+
+    qual = QualOpts(min_count=DEFAULT_MINCOUNT, min_qual=DEFAULT_MINQUAL,
+                    qual_filter=QUAL_STRICT)
+    paths = [os.path.join(WORK, f"genome{s:02d}.fa") for s in range(GENOMES)]
+
+    def timed(tag, fn, ctx=contextlib.nullcontext()):
+        torchinit.reset_launch_counts()
+        torch.cuda.synchronize()
+        with ctx:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        on_result(tag, out, wall, torchinit.launch_counts()["radix_sort"])
+
+    def build(k, n):
+        files = fastx.get_input_list(None, paths[:n])
+        return lambda: api.assemble(build_samples_distributed(
+            files, k, True, qual, device=DEVICE), k, True)
+
+    timed("build k31", build(31, GENOMES))
+    timed("build k63", build(63, GENOMES_K63))
+    timed("profile k31", build(31, GENOMES), profiled)
+    arr = skf.load(os.path.join(WORK, "k31.skf"))
+    sorted_keys, _ = arr.sorted_view()
+    kmers = RefSka(31, paths[0], arr.rc, False, False, device=DEVICE).kmers
+    timed("lookup", lambda: distributed_lookup(sorted_keys, kmers, DEVICE))
+    for tag, (v, _) in grams.items():
+        timed(f"gram {tag}", lambda: distributed_class_gram(v, DEVICE))
+
+
+def phase_dist(torch, torchinit, grams):
+    """The sharded paths (parallel/) on an NCCL group of one rank per
+    card, driven through their functions directly (use_distributed()
+    stays false at one rank, as in the JAX package): every array equal to
+    phase 3's .skf files, the serial lookup and phase 8's serial Grams.
+    Returns the radix launches of the builds and the lookup."""
+    import socket
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from ska_tpu_torch.io import skf
+    from ska_tpu_torch.ops import keys as TK
+    from ska_tpu_torch.ref import RefSka
+
+    world = torch.cuda.device_count()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    helpers = []
+    if world > 1:
+        # ranks 1.. are processes of this script, each on its own card
+        for tag, (v, _) in grams.items():
+            np.save(os.path.join(WORK, f"gram_{tag}.npy"), v)
+        helpers = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dist-rank", str(r),
+             "--dist-world", str(world), "--dist-port", str(port)], cwd=REPO)
+            for r in range(1, world)]
+    done = False
+    try:
+        t0 = time.perf_counter()
+        dist = join_group(torch, 0, world, port)
+        log(f"phase 9: NCCL group of world size {world} "
+            f"(backend {dist.get_backend()}), rank 0 on "
+            f"{torch.cuda.get_device_name(0)}, joined and warmed up in "
+            f"{time.perf_counter() - t0:.3f} s")
+        results = {}
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        dist_calls(torch, torchinit, grams,
+                   lambda tag, *res: results.__setitem__(tag, res), prof)
+        dist.destroy_process_group()
+        done = True
+    finally:
+        # after a failure here the other ranks would wait for their
+        # timeout: end them at once
+        for h in helpers:
+            try:
+                h.wait(timeout=600 if done else 0)
+            except subprocess.TimeoutExpired:
+                h.kill()
+                h.wait()
+    check(all(h.returncode == 0 for h in helpers), "a phase 9 rank failed")
+
+    for k, tag in ((31, "build k31"), (63, "build k63"), (31, "profile k31")):
+        arr, wall, launches = results[tag]
+        want = skf.load(os.path.join(WORK, f"k{k}.skf"))
+        check(arr.names == want.names
+              and np.array_equal(arr.keys, want.keys)
+              and np.array_equal(arr.variants, want.variants)
+              and np.array_equal(arr.counts, want.counts.astype(np.int64)),
+              f"phase 9 {tag}: the sharded build differs from k{k}.skf")
+        check(launches > 0, f"phase 9 {tag}: the radix kernel was not launched")
+        log(f"phase 9 [{tag}]: {arr.ksize} rows x {arr.nsamples} samples, "
+            f"keys, variants, counts and names equal to k{k}.skf; "
+            f"{wall:.3f} s wall, {launches} radix launches")
+
+    (found, rows), wall, launches = results["lookup"]
+    arr = skf.load(os.path.join(WORK, "k31.skf"))
+    sorted_keys, _ = arr.sorted_view()
+    kmers = RefSka(31, os.path.join(WORK, "genome00.fa"), arr.rc, False, False,
+                   device=DEVICE).kmers
+    table = TK.from_numpy_keys(sorted_keys, DEVICE)
+    q = TK.from_numpy_keys(kmers, DEVICE)
+    idx = TK.searchsorted_via_sort(table, q).clamp(0, len(sorted_keys) - 1)
+    s_found = TK.equal(table[idx], q).cpu().numpy()
+    s_rows = np.where(s_found, idx.cpu().numpy(), -1)
+    check(np.array_equal(found, s_found) and np.array_equal(rows, s_rows),
+          "phase 9 lookup: rows differ from the serial searchsorted_via_sort")
+    check(launches > 0, "phase 9 lookup: the radix kernel was not launched")
+    log(f"phase 9 [lookup]: {len(kmers)} queries in {len(sorted_keys)} keys, "
+        f"{int(found.sum())} found, rows equal to the serial lookup's; "
+        f"{wall:.3f} s wall, {launches} radix launches")
+
+    for tag, (v, G) in grams.items():
+        got, wall, launches = results[f"gram {tag}"]
+        check(got.dtype == np.int64 and np.array_equal(got, G),
+              f"phase 9 gram {tag}: differs from phase 8's class_gram")
+        log(f"phase 9 [gram {tag}]: {v.shape[0]} sites x {v.shape[1]} samples, "
+            f"int64 Gram equal to phase 8's class_gram; {wall:.3f} s wall, "
+            f"{launches} radix launches")
+
+    wall = results["profile k31"][1]
+    spans, kernels = profile_events(prof)
+    log(f"phase 9: the k=31 sharded build under torch.profiler: {wall:.3f} s "
+        f"wall (unprofiled: {results['build k31'][1]:.3f} s)")
+    log_profile("phase 9", "the sharded k=31 build", wall, spans, kernels)
+    return sum(results[t][2] for t in ("build k31", "build k63", "lookup"))
+
+
+def dist_only(torch, cli, torchinit, seed, smi):
+    """--dist-only: phase 3's cohort and its .skf files built on the card
+    (serial), phase 8's Gram inputs and their serial Grams, then phase 9
+    at world size torch.cuda.device_count()."""
+    from ska_tpu_torch import distance as D
+
+    paths = [p for p, _ in make_cohort(GENOMES, seed)]
+    for k, n in ((31, GENOMES), (63, GENOMES_K63)):
+        quiet(cli.main, ["build", "-k", str(k), "-o",
+                         os.path.join(WORK, f"k{k}"), "--device", DEVICE,
+                         *paths[:n]])
+    grams = {tag: (v, D.class_gram(v, DEVICE))
+             for tag, v in gram_inputs(torch, seed).items()}
+    t0 = time.perf_counter()
+    launches = phase_dist(torch, torchinit, grams)
+    log(f"phase 9: {time.perf_counter() - t0:.1f} s in all, {launches} radix "
+        f"launches in the builds and the lookup")
+    check("jax" not in sys.modules, "jax was imported")
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+
+
+def dist_helper(rank, world, port):
+    """Rank `rank` (> 0) of phase 9: the same collective calls as rank 0,
+    on the Gram inputs rank 0 wrote; nothing printed, nothing checked."""
+    import numpy as np
+    import torch
+
+    from ska_tpu_torch import torchinit
+
+    dist = join_group(torch, rank, world, port)
+    grams = {tag: (np.load(os.path.join(WORK, f"gram_{tag}.npy")), None)
+             for tag in ("k31.skf", "tree")}
+    dist_calls(torch, torchinit, grams, lambda *a: None)
+    dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------- main
@@ -1106,12 +1346,21 @@ def phase_distance(torch, cli, torchinit, seed):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dist-only", action="store_true",
+                    help="phase 1, the .skf files and Grams that phase 9 "
+                    "compares with, and phase 9 (for a machine of several "
+                    "cards)")
+    # phase 9's ranks 1..: processes of this script, one per further card
+    for flag in ("--dist-rank", "--dist-world", "--dist-port"):
+        ap.add_argument(flag, type=int, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
 
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch finds no CUDA device; it runs on a card only")
+    if args.dist_rank is not None:
+        return dist_helper(args.dist_rank, args.dist_world, args.dist_port)
     from ska_tpu_torch import cli, kernels, torchinit
     from ska_tpu_torch.ops import keys as TK
     from ska_tpu_torch.ops import sort as SO
@@ -1134,6 +1383,9 @@ def main():
     for so in libs:
         with open(so + ".log") as f:
             log(f.read().strip())
+
+    if args.dist_only:
+        return dist_only(torch, cli, torchinit, args.seed, smi)
 
     # phase 2: each kernel against its plain version at the main path's shapes
     sort_res = {W: phase_sort(torch, SO, W, args.seed, dev) for W in (1, 2)}
@@ -1171,7 +1423,12 @@ def main():
 
     # phase 7: map; phase 8: distance
     launches_map = phase_map(torch, cli, torchinit, cohort)
-    phase_distance(torch, cli, torchinit, args.seed)
+    grams = phase_distance(torch, cli, torchinit, args.seed)
+
+    # phase 9: the sharded paths on an NCCL group, one rank per card
+    t0 = time.perf_counter()
+    launches_dist = phase_dist(torch, torchinit, grams)
+    log(f"phase 9: {time.perf_counter() - t0:.1f} s in all")
     check("jax" not in sys.modules, "jax was imported")
 
     w1, w2 = sort_res[1], sort_res[2]
@@ -1181,7 +1438,8 @@ def main():
         "source": "ska_tpu_torch/csrc/radix_sort.cu",
         "replaces": "ska_tpu/ops/sort.py:178",
         "launches": (launches31["radix_sort"] + launches63["radix_sort"]
-                     + launches_reads["radix_sort"] + launches_map),
+                     + launches_reads["radix_sort"] + launches_map
+                     + launches_dist),
         "max_abs_err": max(r["max_abs_err"] for r in (
             *sort_res.values(), *limbs_res.values(), reads_res,
             *lookup_res.values())),
@@ -1211,6 +1469,7 @@ def main():
         "reads_global_bound_ms": reads_res["bound_ms"],
         "reads_global_launches_per_sort": reads_res["launches_per_sort"],
         "launches_map": launches_map,
+        "launches_dist": launches_dist,
         "lookup_ms": lookup_res[1]["ms"],
         "lookup_plain_ms": lookup_res[1]["plain_ms"],
         "lookup_bound_ms": lookup_res[1]["bound_ms"],

@@ -15,6 +15,8 @@ and quality filters, samples over the dispatch cap built in chunks,
 ``--min-count auto``), ``ska align``, ``ska cov``, ``ska map`` (the
 reference scan on the device, the lookup on the radix sort kernel),
 ``ska distance`` (the class Gram on the device) and ``ska weed``
-(``python -m ska_tpu_torch build|align|cov|map|distance|weed``). The
+(``python -m ska_tpu_torch build|align|cov|map|distance|weed``); the
+build, the map lookup and the distance Gram also run sharded over a
+torch.distributed group, one process per card (``parallel/``). The
 package never imports jax.
 """

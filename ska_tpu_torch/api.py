@@ -24,7 +24,7 @@ from .constants import (
 )
 from .io import fastx, skf
 from .merge import extend_arrays
-from .sample import build_samples_merged
+from .sample import build_samples_distributed, build_samples_merged
 from .sampletypes import QualOpts
 
 
@@ -39,10 +39,24 @@ def build(
     """`ska build` of FASTA and/or FASTQ samples: one device pass per
     batch (chunked passes for a sample over the dispatch cap), a host
     union across batches, then the input column order restored (batch
-    grouping may permute samples), as ska_tpu.api.build."""
-    batches = build_samples_merged(
-        input_files, k, rc, qual, proportion_reads, device=device
-    )
+    grouping may permute samples), as ska_tpu.api.build. In a process
+    group (parallel.use_distributed) every rank runs it: the samples are
+    cut over the ranks and merge by key range (sample.py
+    build_samples_distributed), and every rank gets the array."""
+    from .parallel import use_distributed
+
+    if use_distributed(device):
+        batches = build_samples_distributed(
+            input_files, k, rc, qual, proportion_reads, device=device)
+    else:
+        batches = build_samples_merged(
+            input_files, k, rc, qual, proportion_reads, device=device)
+    return assemble(batches, k, rc)
+
+
+def assemble(batches, k: int, rc: bool) -> SkaArray:
+    """The SkaArray of build_samples_merged's (or _distributed's) batch
+    results: their host union, in the input column order."""
     arrays = [
         SkaArray(k=k, rc=rc, names=names, keys=keys, variants=var, counts=counts)
         for (_, names, keys, var, counts) in batches

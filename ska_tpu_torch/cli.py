@@ -4,6 +4,11 @@ The grammar is the JAX package's, whole (``build_parser``, a copy of
 ska_tpu/cli.py's mirror of the reference's clap CLI, src/cli.rs:167-426),
 plus ``--device`` (default: SKA_DEVICE, else ``cuda``), which may stand
 anywhere on the line. Subcommands that are not ported yet are refused.
+``main`` is ska_tpu.cli's wrapper: a closed stdout exits 141 without a
+traceback, a MemoryError with guidance prints it and exits 1, the banner
+and the footer go to stderr, and ``--threads`` sets SKA_THREADS. With
+SKA_COORDINATOR set the process joins its group first
+(parallel/multihost.py).
 """
 
 import argparse
@@ -11,6 +16,7 @@ import contextlib
 import logging
 import os
 import sys
+import time
 
 from .constants import (
     DEFAULT_AMBIGMASK,
@@ -171,6 +177,26 @@ def build_parser():
 
 
 def main(argv=None):
+    # a downstream `| head` closes stdout early: exit silently with the
+    # reference binary's SIGPIPE status instead of a traceback
+    try:
+        return _main(argv)
+    except BrokenPipeError:
+        try:
+            sys.stdout.close()
+        except BrokenPipeError:
+            pass
+        sys.exit(141)  # 128 + SIGPIPE
+    except MemoryError as e:
+        # a MemoryError raised WITH guidance is reported as such; a bare
+        # one keeps its traceback (the allocation site is what helps)
+        if not str(e):
+            raise
+        print(f"Error: {e}", file=sys.stderr)
+        sys.exit(1)
+
+
+def _main(argv=None):
     pre = argparse.ArgumentParser(add_help=False, allow_abbrev=False)
     pre.add_argument("--device", default=None)
     opts, rest = pre.parse_known_args(argv)
@@ -185,37 +211,75 @@ def main(argv=None):
         format="%(asctime)s %(levelname)s [%(name)s] %(message)s",
         stream=sys.stderr,
     )
+    print("SKA: Split K-mer Analysis (the alignment-free aligner)", file=sys.stderr)
+    start = time.time()
 
+    # the reference sizes its rayon pool with --threads; here the host
+    # library's threaded stages (map's AlnWriter) read SKA_THREADS. An
+    # explicit --threads wins over an inherited SKA_THREADS.
+    if getattr(args, "threads", None) is not None:
+        os.environ["SKA_THREADS"] = str(args.threads)
+
+    from .parallel import init_multihost
+
+    # a multi-process run joins its group before anything touches a card
+    joined = bool(os.environ.get("SKA_COORDINATOR")) and init_multihost(
+        device=opts.device)
+    try:
+        if not _run(args, opts.device):
+            return
+    finally:
+        if joined:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+    _footer(start)
+
+
+def _run(args, device) -> bool:
+    """Run the subcommand; False when this rank has nothing to do."""
     from torch.profiler import record_function
 
     from . import api
     from .io import fastx, skf
+    from .parallel import is_primary, use_distributed
     from .sampletypes import QualOpts
 
-    if args.command == "build":
+    cmd = args.command
+    primary = is_primary()
+    # in a process group, build, map and distance (and align of FASTA
+    # files, which builds first) run their collectives on every rank and
+    # rank 0 writes; every other command runs on rank 0 alone
+    collective = cmd in ("build", "map", "distance") or (
+        cmd == "align" and len(args.input) > 1)
+    if not primary and not (collective and use_distributed(device)):
+        log.info("secondary process: '%s' runs on rank 0 only", cmd)
+        return False
+    if cmd == "build":
         input_files = fastx.get_input_list(args.file_list, args.seq_files or None)
         rc = not args.single_strand
         qual = QualOpts(
-            min_count=_resolve_min_count(args, input_files, rc, opts.device),
+            min_count=_resolve_min_count(args, input_files, rc, device),
             min_qual=args.min_qual,
             qual_filter=QUAL_FILTER_NAMES[args.qual_filter],
         )
         arr = api.build(input_files, args.k, rc, qual, args.proportion_reads,
-                        device=opts.device)
-        with record_function("ska::save"):
-            skf.save(arr, args.output)
-    elif args.command == "cov":
+                        device=device)
+        if primary:
+            with record_function("ska::save"):
+                skf.save(arr, args.output)
+    elif cmd == "cov":
         from .coverage import CoverageHistogram
 
         cov = CoverageHistogram(args.fastq_fwd, args.fastq_rev, args.k,
                                 not args.single_strand, args.verbose,
-                                device=opts.device)
+                                device=device)
         cutoff = cov.fit_histogram()
         cov.plot_hist()
         print(f"Estimated cutoff\t{cutoff}", file=sys.stderr)
-    elif args.command == "align":
-        arr = api.load_array(args.input, device=opts.device)
-        with _ostream(args.output, binary=True) as fh:
+    elif cmd == "align":
+        arr = api.load_array(args.input, device=device)
+        with _ostream(args.output, binary=True, primary=primary) as fh:
             api.align(
                 arr,
                 fh,
@@ -225,19 +289,17 @@ def main(argv=None):
                 min_freq=args.min_freq,
                 filter_ambig_as_missing=args.filter_ambig_as_missing,
             )
-    elif args.command == "map":
-        if args.threads is not None:
-            # the AlnWriter's sample threads (ref.RefSka.pseudoalignment)
-            os.environ["SKA_THREADS"] = str(args.threads)
-        arr = api.load_array(args.input, device=opts.device)
-        with _ostream(args.output, binary=args.format == "aln") as fh:
+    elif cmd == "map":
+        arr = api.load_array(args.input, device=device)
+        with _ostream(args.output, binary=args.format == "aln",
+                      primary=primary) as fh:
             api.map_mode(arr, args.reference, fh, args.format,
-                         args.ambig_mask, args.repeat_mask, device=opts.device)
-    elif args.command == "distance":
+                         args.ambig_mask, args.repeat_mask, device=device)
+    elif cmd == "distance":
         arr = skf.load(args.skf_file)
-        with _ostream(args.output) as fh:
+        with _ostream(args.output, primary=primary) as fh:
             api.distance_mode(arr, fh, args.min_freq, not args.allow_ambiguous,
-                              device=opts.device)
+                              device=device)
     else:
         arr = skf.load(args.skf_file)
         api.weed_mode(
@@ -250,14 +312,24 @@ def main(argv=None):
             args.ambig_mask,
             args.no_gap_only_sites,
             args.output or args.skf_file,
-            device=opts.device,
+            device=device,
         )
+    return True
+
+
+def _footer(start):
+    print(f"SKA done in {int(time.time() - start)}s", file=sys.stderr)
+    print("⬛⬜⬛⬜⬛⬜⬛", file=sys.stderr)
+    print("⬜⬛⬜⬛⬜⬛⬜", file=sys.stderr)
 
 
 @contextlib.contextmanager
-def _ostream(output, binary=False):
+def _ostream(output, binary=False, primary=True):
     """The output file (closed after), or stdout (flushed after): bytes
-    for alignments, text for VCF and TSV."""
+    for alignments, text for VCF and TSV. A secondary rank of a process
+    group writes nothing (os.devnull)."""
+    if not primary:
+        output = os.devnull
     if output is None:
         fh = sys.stdout.buffer if binary else sys.stdout
         try:

@@ -120,18 +120,37 @@ def class_gram(variants: np.ndarray, device=None) -> np.ndarray:
     """Exact int64 co-occurrence Gram over 16 classes. variants: (S, n)
     uint8; the products run on `device`.
 
-    The one-hot width is compacted to the classes present, and the
-    chunks are powers of two with the tail padded by the pad class, as
-    in the JAX package; each chunk is one int8 product, and the chunk
-    Grams sum on the device in int64; one copy brings the total back.
-    The JAX package dedupes rows on the host first and runs a weighted
-    f32 product below 2^24 sites, to shrink its transfers to the TPU;
-    on the card that host dedupe costs more than the whole int8 Gram
-    (chip_smoke.py phase 8 times both), so every size takes this route.
+    The one-hot width is compacted to the classes present, as in the JAX
+    package, and gram_rows sums the int8 chunk Grams; one copy brings the
+    total back. The JAX package dedupes rows on the host first and runs
+    a weighted f32 product below 2^24 sites, to shrink its transfers to
+    the TPU; on the card that host dedupe costs more than the whole int8
+    Gram (chip_smoke.py phase 8 times both), so every size takes this
+    route. In a process group (parallel.use_distributed) the sites are
+    cut over the ranks (parallel/postbuild.py).
     """
+    from .parallel import use_distributed
+
     dev = get_device(device)
-    S, n = variants.shape
+    if use_distributed(dev):
+        from .parallel.postbuild import distributed_class_gram
+
+        return distributed_class_gram(variants, dev)
+    n = variants.shape[1]
     compact, present, K, width, pad_class = compact_classes(variants)
+    Gc = gram_rows(compact, n, width, pad_class, K == width, dev)
+    return scatter_gram_16(Gc.cpu().numpy(), present, K, width, n)
+
+
+def gram_rows(compact: np.ndarray, n: int, width: int, pad_class: int,
+              pad_is_class: bool, dev) -> torch.Tensor:
+    """The (n*width, n*width) int64 Gram of compact (S, n) class rows on
+    `dev`: chunks of powers of two rows, at least 1024 and at most 2^24,
+    the tail padded by pad_class; each chunk is one int8 product
+    (gram_chunk) and the chunk Grams sum on the device in int64. When the
+    pad is a real class (pad_is_class: class 0, '-', when no slot is
+    free), its counts are taken back out."""
+    S = compact.shape[0]
     # bound the one-hot scratch and keep chunks powers of two, at least
     # 1024 rows and no larger than the bucket that holds the data
     chunk = max(1 << 10, min(1 << 24, GRAM_SCRATCH_BYTES // max(width * n, 1)))
@@ -154,16 +173,12 @@ def class_gram(variants: np.ndarray, device=None) -> np.ndarray:
             bar.update()
     if bar:
         bar.finish()
-    Gc = Gc.cpu().numpy()
-    if K == width:
-        # the tail padding reused class 0 ('-') as the pad (no discarded
-        # slot when K == width), so each padding row added 1 to
-        # [i, pad, j, pad] for every sample pair: subtract it
-        total_pad = n_chunks * chunk - S
-        if total_pad:
-            Gv = Gc.reshape(n, width, n, width)
-            Gv[:, pad_class, :, pad_class] -= total_pad
-    return scatter_gram_16(Gc, present, K, width, n)
+    if pad_is_class:
+        # each padding row added 1 to [i, pad, j, pad] for every sample
+        # pair: subtract it
+        Gc.view(n, width, n, width)[:, pad_class, :, pad_class] -= (
+            n_chunks * chunk - S)
+    return Gc
 
 
 def pairwise_stats(variants: np.ndarray, constant: float, filt_ambig: bool,

@@ -7,8 +7,10 @@
   by cummax, the per-(key, sample) IUPAC OR by masked doubling, row ids
   by cumsum, and three scatters into the keys, the 4-bit-packed variants
   matrix and the counts.
-- ``sample_pipeline`` / ``sample_from_raw`` and ``chunk_count_pipeline``
-  / ``chunk_count_from_raw``: one chunk of a sample too large for one
+- ``batched_pipeline``: each sample's own dictionary over an (S, L)
+  batch, row by row (the local stage of parallel/build.py);
+  ``sample_from_raw`` and ``chunk_count_pipeline`` /
+  ``chunk_count_from_raw``: one chunk of a sample too large for one
   dispatch (sample.py's chunked build); ``chunk_key_counts(_from_raw)``:
   one chunk of chunked ``ska cov``.
 
@@ -41,7 +43,8 @@ def _seg_start_idx(first):
 
 def _seg_union(vals, ssi):
     """OR within each sorted segment along the last axis, via masked
-    doubling (log2 L passes)."""
+    doubling (log2 L passes). On (S, L) rows the segments never cross a
+    row: the JAX package's _seg_union and _seg_union_rows in one."""
     L = vals.shape[-1]
     i32 = torch.arange(L, dtype=torch.int32, device=vals.device)
     v = vals
@@ -264,9 +267,12 @@ def device_masks(seqs, qual_bits, rec_ends, strict_valid: bool,
     return valid, qual_ok, _rec_last(rec_ends, seqs.shape[1])
 
 
-def sample_pipeline(seq, valid, qual_ok, rec_last, k: int, rc: bool, W: int,
-                    is_reads: bool, use_mid_qual: bool, min_count: int):
-    """Each sample's dictionary of an (S, L) batch.
+def batched_pipeline(seq, valid, qual_ok, rec_last, k: int, rc: bool, W: int,
+                     is_reads: bool, use_mid_qual: bool, min_count: int):
+    """Each sample's dictionary of an (S, L) batch (ska_tpu's
+    batched_pipeline; its sample_pipeline is the S = 1 case). Every sort
+    is row by row, so on a card each row is one launch sequence of the
+    radix kernel.
 
     Returns (packed (S, L, W) (key << 4 | set) limbs sorted with
     sentinels last, union uint8 (S, L), is_end bool (S, L), n_unique
@@ -308,11 +314,11 @@ def sample_from_raw(
     k: int, rc: bool, W: int, is_reads: bool, use_mid_qual: bool,
     min_count: int, strict_valid: bool, has_qual: bool,
 ):
-    """sample_pipeline of one (L,) sample fed by raw bytes (device_masks
+    """batched_pipeline of one (L,) sample fed by raw bytes (device_masks
     first); returns its outputs without the batch axis."""
     valid, qual_ok, rec_last = device_masks(
         seq[None], qual_bits[None], rec_ends[None], strict_valid, has_qual)
-    out = sample_pipeline(seq[None], valid, qual_ok, rec_last, k, rc, W,
+    out = batched_pipeline(seq[None], valid, qual_ok, rec_last, k, rc, W,
                           is_reads, use_mid_qual, min_count)
     return tuple(x[0] for x in out)
 

@@ -15,9 +15,11 @@ build's do: ``ska::parse``, ``ska::scan`` (the extraction dispatches),
 ``ska::gather`` (the hit rows of the variants matrix, on the host),
 ``ska::pseudoalign`` and ``ska::vcf`` (the VCF's per-column loop).
 
-The JAX package's native reference scan, its host binary-search lookup
-and its mesh-sharded lookup have no counterpart here: the port's CPU
-route is the same device code on CPU tensors.
+In a process group (parallel.use_distributed) the lookup is cut into
+key ranges over the ranks (parallel/postbuild.py::distributed_lookup).
+The JAX package's native reference scan and its host binary-search
+lookup have no counterpart here: the port's CPU route is the same
+device code on CPU tensors.
 """
 
 import os
@@ -34,6 +36,8 @@ from .io import fastx, native
 from .ops import extract as X
 from .ops import keys as KD
 from .ops import npkeys as K
+from .parallel import use_distributed
+from .parallel.postbuild import distributed_lookup
 from .sample import _bucket, _max_chunk_bases
 from .torchinit import get_device
 
@@ -230,13 +234,22 @@ class RefSka:
 
         with record_function("ska::lookup"):
             sorted_keys, perm = arr.sorted_view()
-            table = KD.from_numpy_keys(sorted_keys, self.device)
-            queries = KD.from_numpy_keys(self.kmers, self.device)
-            idx = KD.searchsorted_via_sort(table, queries).clamp_(0, arr.ksize - 1)
-            found = KD.equal(table[idx], queries)
-            hit_t = torch.nonzero(found).squeeze(1)
-            hit = hit_t.cpu().numpy()
-            cidx = idx[hit_t].cpu().numpy()
+            if use_distributed(self.device):
+                # the keys cut into key ranges over the process group
+                # (parallel/postbuild.py); every rank gets every row
+                found, rows_idx = distributed_lookup(sorted_keys, self.kmers,
+                                                     self.device)
+                hit = np.flatnonzero(found)
+                cidx = rows_idx[hit]
+            else:
+                table = KD.from_numpy_keys(sorted_keys, self.device)
+                queries = KD.from_numpy_keys(self.kmers, self.device)
+                idx = KD.searchsorted_via_sort(table, queries).clamp_(
+                    0, arr.ksize - 1)
+                found = KD.equal(table[idx], queries)
+                hit_t = torch.nonzero(found).squeeze(1)
+                hit = hit_t.cpu().numpy()
+                cidx = idx[hit_t].cpu().numpy()
         with record_function("ska::gather"):
             rows = arr.variants[cidx if perm is None else perm[cidx]]
             # reverse-strand hits translate through RC_IUPAC

@@ -1,6 +1,6 @@
 """Merged cohort build: the device half of
-ska_tpu/sample.py::build_samples_merged, with the port's copies of its
-host helpers.
+ska_tpu/sample.py::build_samples_merged and build_samples_distributed,
+with the port's copies of their host helpers.
 
 Host parsing, grouping by (padded length, reads, quality gates), the
 batch size (``_auto_max_batch``), power-of-two batch padding, the packed
@@ -194,11 +194,71 @@ def _stage_packed(batches, Lp, min_qual=0):
     return seq2, valid_bits, qual_bits, rec_ends, has_qual
 
 
+def _stage_raw(batches, Lp, min_qual=0):
+    """Host staging for the raw-bytes device path: sequence bytes,
+    packed per-base quality-pass bits and record-end indices; the masks
+    derive on the device (ops.pipeline.device_masks)."""
+    S = len(batches)
+    has_qual = all(bool(b.has_qual) for b in batches)
+    seqs = np.zeros((S, Lp), np.uint8)
+    qual_bits = np.zeros((S, (Lp + 7) // 8 if has_qual else 1), np.uint8)
+    Eb = _bucket_min(max(int(b.rec_last.sum()) for b in batches), 16)
+    rec_ends = np.full((S, Eb), Lp, np.int32)
+    for i, b in enumerate(batches):
+        L = len(b.seq)
+        seqs[i, :L] = b.seq
+        if has_qual:
+            # the reference's `qual: None => true` 0xFF rule
+            # (split_kmer.rs:66-71); padding packs to 0
+            ok = np.zeros(Lp, bool)
+            ok[:L] = ((b.qual.astype(np.int16) - 33) > min_qual) | (
+                b.qual == 0xFF
+            )
+            qual_bits[i] = np.packbits(ok)
+        ends = np.flatnonzero(b.rec_last).astype(np.int32)
+        rec_ends[i, : len(ends)] = ends
+    return seqs, qual_bits, rec_ends, has_qual
+
+
 def _max_chunk_bases() -> int:
     """Device dispatch cap in bases; inputs beyond it build chunked
     (bounded HBM, like the reference's streaming reads)."""
     # default just under a pow2 so the padded chunk bucket stays 2^26
     return int(os.environ.get("SKA_MAX_CHUNK_BASES", str((1 << 26) - 128)))
+
+
+def _parse_and_group(input_files, k: int, qual, proportion_reads):
+    """Parse every sample on the host, then sort them into the chunked
+    ones (over SKA_MAX_CHUNK_BASES) and groups by (padded length, reads,
+    middle quality gate, qualities). Returns (prepared, {group key:
+    [input index]}, [oversized input index], the cap)."""
+    with record_function("ska::parse"), cf.ThreadPoolExecutor(8) as pool:
+        prepared = list(pool.map(
+            lambda t: prepare_sample((t[1], t[2]), proportion_reads),
+            input_files,
+        ))
+    cap = _max_chunk_bases()
+    groups = {}
+    big = []
+    for i, (batch, is_reads) in enumerate(prepared):
+        if len(batch.seq) + k + 1 > cap:
+            big.append(i)  # oversized sample: chunked per-sample build
+            continue
+        Lp = _bucket(len(batch.seq) + k + 1)
+        use_mq, _ = _gates(is_reads, batch.has_qual, qual)
+        key = (Lp, is_reads, use_mq, bool(batch.has_qual))
+        groups.setdefault(key, []).append(i)
+    return prepared, groups, big, cap
+
+
+def _big_batch(input_files, i, keys_sets):
+    """The batch result of oversized sample i from its chunked build's
+    (keys, sets)."""
+    keys_np, sets_np = keys_sets
+    if len(keys_np) == 0:
+        raise ValueError(f"{input_files[i][1]} has no valid sequence")
+    var = np.asarray(SET_TO_ASCII)[sets_np][:, None]
+    return [i], [input_files[i][0]], keys_np, var, np.ones(len(keys_np), np.int64)
 
 
 def build_samples_merged(input_files, k: int, rc: bool, qual,
@@ -215,36 +275,15 @@ def build_samples_merged(input_files, k: int, rc: bool, qual,
     """
     check_k(k)
     dev = get_device(device)
-    with record_function("ska::parse"), cf.ThreadPoolExecutor(8) as pool:
-        prepared = list(pool.map(
-            lambda t: prepare_sample((t[1], t[2]), proportion_reads),
-            input_files,
-        ))
-
-    cap = _max_chunk_bases()
-    groups = {}
-    big = []
-    for i, (batch, is_reads) in enumerate(prepared):
-        if len(batch.seq) + k + 1 > cap:
-            big.append(i)  # oversized sample: chunked per-sample build
-            continue
-        Lp = _bucket(len(batch.seq) + k + 1)
-        use_mq, _ = _gates(is_reads, batch.has_qual, qual)
-        key = (Lp, is_reads, use_mq, bool(batch.has_qual))
-        groups.setdefault(key, []).append(i)
-
+    prepared, groups, big, cap = _parse_and_group(input_files, k, qual,
+                                                  proportion_reads)
     W = width_for_k(k)
     out = []
     bar = Bar(len(prepared), "samples")
     for i in big:
         batch, is_reads = prepared[i]
-        keys_np, sets_np = dict_from_batch_chunked(batch, k, rc, qual,
-                                                   is_reads, cap, dev)
-        if len(keys_np) == 0:
-            raise ValueError(f"{input_files[i][1]} has no valid sequence")
-        var = np.asarray(SET_TO_ASCII)[sets_np][:, None]
-        counts_np = np.ones(len(keys_np), np.int64)
-        out.append(([i], [input_files[i][0]], keys_np, var, counts_np))
+        out.append(_big_batch(input_files, i, dict_from_batch_chunked(
+            batch, k, rc, qual, is_reads, cap, dev)))
         bar.update(1)
     for (Lp, is_reads, use_mq, has_qual), idxs in groups.items():
         _, strict_valid = _gates(is_reads, has_qual, qual)
@@ -283,6 +322,76 @@ def build_samples_merged(input_files, k: int, rc: bool, qual,
             out.append((chunk, names, keys_np, var_np, counts_np))
             bar.update(len(chunk))
     bar.finish()
+    return out
+
+
+def build_samples_distributed(input_files, k: int, rc: bool, qual,
+                              proportion_reads=None, device=None):
+    """Build and merge a cohort over the process group, with the result
+    contract of build_samples_merged (ska_tpu.sample's
+    build_samples_distributed).
+
+    Every rank parses every sample, so that all agree on the groups and
+    the sample ids. Samples are grouped by (padded length, reads, middle
+    quality gate, qualities) for the local stage only, and a group over
+    SKA_MAX_HOST_BATCH_BYTES is staged in several calls; every group's
+    triples then merge in ONE key-range exchange
+    (parallel.distributed_build_multi), so api.build gets one batch for
+    them. Samples over SKA_MAX_CHUNK_BASES build chunked
+    (dict_from_batch_chunked), the j-th of them on rank j % D; the ranks
+    swap their results and api.build unions them on the host. Every rank
+    returns the same batches.
+    """
+    from .parallel import comm
+    from .parallel.build import distributed_build_multi
+
+    check_k(k)
+    dev = get_device(device)
+    D, rank = comm.world()
+    prepared, groups, big, cap = _parse_and_group(input_files, k, qual,
+                                                  proportion_reads)
+    out = []
+    if big:
+        mine = {}
+        for j, i in enumerate(big):
+            if j % D == rank:
+                batch, is_reads = prepared[i]
+                mine[i] = dict_from_batch_chunked(batch, k, rc, qual, is_reads,
+                                                  cap, dev)
+            prepared[i] = None  # consumed; free the raw batch
+        built = {i: r for part in comm.all_gather_object(mine)
+                 for i, r in part.items()}
+        out += [_big_batch(input_files, i, built[i]) for i in big]
+
+    # bound the transient host staging of one local call (1-2 bytes a
+    # base); a larger group takes several calls, still one exchange
+    cap_bytes = int(os.environ.get("SKA_MAX_HOST_BATCH_BYTES", 4 << 30))
+    calls, call_idxs = [], []
+    for (Lp, is_reads, use_mq, has_qual), gidxs in groups.items():
+        _, strict_valid = _gates(is_reads, has_qual, qual)
+        per = max(1, cap_bytes // (Lp * (2 if has_qual else 1)))
+        for c0 in range(0, len(gidxs), per):
+            idxs = gidxs[c0 : c0 + per]
+            with record_function("ska::stage"):
+                seqs, qual_bits, rec_ends, _ = _stage_raw(
+                    [prepared[i][0] for i in idxs], Lp, int(qual.min_qual))
+            for i in idxs:
+                prepared[i] = None  # staged; free the raw batch
+            calls.append(dict(
+                seqs=seqs, quals=qual_bits, rec_ends=rec_ends,
+                sids=np.arange(len(call_idxs), len(call_idxs) + len(idxs),
+                               dtype=np.int32),
+                is_reads=is_reads, use_mq=use_mq, strict_valid=strict_valid,
+                has_qual=has_qual,
+            ))
+            call_idxs.extend(idxs)
+    if calls:
+        keys_np, var_np, counts_np, n_rows = distributed_build_multi(
+            calls, k, rc, min_count=int(qual.min_count), device=dev)
+        _check_all_present(var_np, n_rows,
+                           [input_files[i][1] for i in call_idxs])
+        out.append((call_idxs, [input_files[i][0] for i in call_idxs],
+                    keys_np, var_np, counts_np))
     return out
 
 

@@ -6,7 +6,7 @@
   strand, for a cohort that mixes FASTA and FASTQ samples, for a
   FASTQ/FASTA mate pair, and with SKA_MAX_CHUNK_BASES forcing samples
   through the chunked build;
-- the port's sample_pipeline, chunk_count_pipeline and the reads branch
+- the port's sample_from_raw, chunk_count_pipeline and the reads branch
   of the merged build equal the JAX functions on the same numpy inputs,
   compared after unpacking (the JAX sorts there are unstable, so only
   what they fix is compared);
@@ -308,3 +308,24 @@ def test_merged_reads_branch_matches_jax(S, k, min_count, qual_filter):
     assert np.array_equal(TK.to_numpy_keys(got[0][:n]), np.asarray(want[0])[:n])
     assert np.array_equal(got[1][:n].numpy(), np.asarray(want[1])[:n])
     assert np.array_equal(got[2][:n].numpy(), np.asarray(want[2])[:n])
+
+
+def test_cli_proportion_reads_matches_ska_py(tmp_path):
+    """`build -k 17 --min-count 2 --proportion-reads 0.5` of three FASTQ
+    pairs: every second read of each file, the .skf bytes of ./ska.py's
+    (ska_tpu.cli, pinned to its JAX pipeline)."""
+    from ska_tpu import cli as jcli
+    from ska_tpu_torch import cli as tcli
+
+    files = _fastq_cohort(tmp_path, seed=21, n_samples=3)
+    tsv = tmp_path / "samples.tsv"
+    tsv.write_text("".join("\t".join(f) + "\n" for f in files))
+    argv = ["build", "-f", str(tsv), "-k", "17", "--min-count", "2",
+            "--proportion-reads", "0.5", "-o"]
+    tcli.main(argv + [str(tmp_path / "port"), "--device", "cpu"])
+    jcli.main(argv + [str(tmp_path / "ref")])
+    port = (tmp_path / "port.skf").read_bytes()
+    assert port == (tmp_path / "ref.skf").read_bytes()
+    # the proportion took effect: all the reads give another array
+    tcli.main(argv[:-3] + ["-o", str(tmp_path / "all"), "--device", "cpu"])
+    assert (tmp_path / "all.skf").read_bytes() != port
