@@ -5,8 +5,9 @@
 
 Run from the root of a checkout; it needs one CUDA card and refuses to
 run without one. --dist-only runs phase 1, builds what phase 9 compares
-with, and phase 9: for a machine of several cards. Nine phases, and any failure ends the run with a
-non-zero exit (nothing is caught, nothing moves to the CPU or to gloo):
+with, and phase 9: for a machine of several cards. Ten phases, and any
+failure ends the run with a non-zero exit (nothing is caught, nothing
+moves to the CPU or to gloo):
 
 1. Build the port's native libraries from the sources in the checkout,
    both at once: the radix sort kernel (nvcc) and the host library
@@ -94,6 +95,16 @@ non-zero exit (nothing is caught, nothing moves to the CPU or to gloo):
    the serial searchsorted_via_sort; distributed_class_gram of phase 8's
    two inputs, equal to its int64 Grams; each call's wall time and radix
    launches, and the k=31 build once more under torch.profiler.
+10. The host commands, through the CLI with --device cuda, each with the
+   radix kernel launched 0 times: `ska nk` (and --full-info) of k31.skf;
+   `ska delete` of genomes 04-20 (a -f list) and of 00-03 from k31.skf,
+   then `ska merge` of the two halves, equal to k31.skf in keys,
+   variants, counts and names; `ska lo` of the first 100,000 bases of
+   the chromosomes of genomes 00-03 (built on the card at k=31 and
+   k=63), at k=31 with genome 00's cut chromosome as the reference at
+   --threads 1 and min(8, cores), all four output files byte-equal, and
+   at k=63 without a reference; each run's wall time and the stage times
+   of its -v log (graph walk, group assembly, path filter, SNP stage).
 
 The last lines are the card's name and power limit (nvidia-smi), one
 JSON line with each kernel's launches, error and times, and the result
@@ -103,8 +114,11 @@ line {"ok": true, "device": {...}}.
 import argparse
 import concurrent.futures as cf
 import contextlib
+import io
 import json
+import logging
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -132,6 +146,8 @@ LOOKUP_QUERY_LOG2 = 21  # split k-mers of a 2 Mb reference
 MAP_SLICE_CAP = 1_048_448  # phase 7's sliced run: 2^20 - 128 bases a slice
 GRAM_SAMPLES = 512  # phase 8's cohort-size Gram: samples ...
 GRAM_SITES_LOG2 = 20  # ... and variable sites
+LO_GENOMES = 4  # phase 10's lo cohort: genomes 00-03 ...
+LO_BASES = 100_000  # ... cut to the first bases of the chromosome
 ALL_ONES = 0xFFFFFFFFFFFFFFFF
 DEVICE = "cuda"
 
@@ -1340,6 +1356,214 @@ def dist_helper(rank, world, port):
     dist.destroy_process_group()
 
 
+# ---------------------------------------------------------------- phase 10
+
+
+class StageLog(logging.Handler):
+    """Keeps the (time, message) of each record of `ska lo`'s -v log."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append((record.created, record.getMessage()))
+
+    def at(self, pattern):
+        """(time, match) of the first record matching `pattern`."""
+        for t, msg in self.records:
+            m = re.search(pattern, msg)
+            if m:
+                return t, m
+        raise RuntimeError(f"chip_smoke: no log record matches {pattern!r}")
+
+    def stages(self):
+        """Seconds of the graph walk, the group assembly, the path filter
+        and the SNP stage."""
+        return {
+            "graph walk": float(self.at(r"graph walk: ([\d.]+)s")[1][1]),
+            "group assembly": float(self.at(r"group assembly: ([\d.]+)s")[1][1]),
+            "path filter": (self.at(r"^Sorting variant groups")[0]
+                            - self.at(r"^Filtering paths")[0]),
+            "SNP stage": (self.at(r"^\d+ SNPs")[0]
+                          - self.at(r"^Processing SNPs")[0]),
+        }
+
+
+def host_cpu():
+    """The host's CPU model and its core count: /proc/cpuinfo's model
+    name, else lscpu's, else platform.processor()."""
+    import platform
+    import shutil
+
+    with open("/proc/cpuinfo") as f:
+        model = next((ln.split(":", 1)[1].strip() for ln in f
+                      if ln.lower().startswith("model name")), "")
+    if not model and shutil.which("lscpu"):
+        out = subprocess.run(["lscpu"], capture_output=True, text=True).stdout
+        model = next((ln.split(":", 1)[1].strip() for ln in out.splitlines()
+                      if ln.lower().startswith("model name")), "")
+    model = model or platform.processor() or "CPU model not exposed"
+    return f"{model}, {os.cpu_count()} cores"
+
+
+def host_run(cli, torchinit, argv, stdout_path=None):
+    """One CLI run of a host command with --device cuda, launch counters
+    zeroed just before it; stdout goes to stdout_path (or is dropped).
+    Returns the wall time; the radix kernel must not have been launched."""
+    torchinit.reset_launch_counts()
+    t0 = time.perf_counter()
+    with open(stdout_path or os.devnull, "w") as out, \
+            contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(io.StringIO()):
+        cli.main(argv + ["--device", DEVICE])
+    wall = time.perf_counter() - t0
+    launches = torchinit.launch_counts()
+    check(all(n == 0 for n in launches.values()),
+          f"{argv[0]} launched a kernel: {launches}")
+    return wall
+
+
+def count_lines(path):
+    n = 0
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 24), b""):
+            n += block.count(b"\n")
+    return n
+
+
+def phase_host_cmds(cli, torchinit, cohort):
+    """`ska nk`, `delete`, `merge` and `lo` through cli.main with --device
+    cuda. They are host code (the JAX package sends no part of them to
+    its accelerator): the radix kernel must be launched 0 times in each.
+
+    nk, delete and merge run at full width on phase 3's k31.skf (21
+    genomes): nk's header and --full-info's one line per k-mer; delete
+    of genomes 04-20 (names from a -f list) and of 00-03, then the merge
+    of the two, whose keys, variants, counts and names must equal
+    k31.skf's. lo runs on a cut: the first LO_BASES bases of the
+    chromosome of genomes 00-03, as one-record FASTAs built on the card
+    at k=31 and k=63. The cut is set by lo's path filter, a pure-Python
+    loop over every kept path (about 2,800-7,000 paths/s, one thread).
+    k=31 runs with -r (genome 00's cut chromosome, one record: lo takes
+    no other) at --threads 1 and min(8, cores), whose four output files
+    must be byte-equal; k=63 runs without a reference."""
+    import numpy as np
+
+    from ska_tpu_torch.io import skf
+
+    log(f"phase 10: host CPU {host_cpu()}")
+    k31 = os.path.join(WORK, "k31.skf")
+    ref = skf.load(k31)
+    names = list(ref.names)
+    check(names == [f"genome{s:02d}" for s in range(GENOMES)],
+          f"phase 10: k31.skf names {names}")
+
+    nk_out = os.path.join(WORK, "nk31.txt")
+    t_nk = host_run(cli, torchinit, ["nk", k31], nk_out)
+    with open(nk_out) as f:
+        head = f.read().split("\n")
+    check(head[4] == f"k-mers={ref.ksize}" and head[5] == f"samples={GENOMES}",
+          f"phase 10: nk printed {head[4]!r}, {head[5]!r}")
+    full_out = os.path.join(WORK, "nk31_full.txt")
+    t_full = host_run(cli, torchinit, ["nk", k31, "--full-info"],
+                      full_out)
+    n_lines = count_lines(full_out)
+    # the header's 8 lines and a blank one, a line per k-mer, a blank one
+    check(n_lines == 9 + ref.ksize + 1,
+          f"phase 10: nk --full-info printed {n_lines} lines for "
+          f"{ref.ksize} k-mers")
+    log(f"phase 10 [nk]: k-mers={ref.ksize}, samples={GENOMES}; nk "
+        f"{t_nk:.3f} s wall, --full-info {t_full:.3f} s wall "
+        f"({os.path.getsize(full_out)} bytes, one line per k-mer)")
+    os.remove(full_out)
+
+    drop = os.path.join(WORK, "delete_04_20.txt")
+    with open(drop, "w") as f:
+        f.writelines(f"{n}\t{n}.fa\n" for n in names[4:])
+    first4 = os.path.join(WORK, "k31_04")
+    rest = os.path.join(WORK, "k31_rest")
+    merged = os.path.join(WORK, "k31_merged")
+    t_del04 = host_run(cli, torchinit,
+                       ["delete", "-s", k31, "-o", first4, "-f", drop])
+    t_delrest = host_run(cli, torchinit,
+                         ["delete", "-s", k31, "-o", rest, *names[:4]])
+    t_merge = host_run(cli, torchinit,
+                       ["merge", first4 + ".skf", rest + ".skf", "-o", merged])
+    got = skf.load(merged + ".skf")
+    check(got.names == names and got.k == ref.k and got.rc == ref.rc,
+          "phase 10: merge of the deleted halves: names, k or strand differ")
+    check(np.array_equal(got.keys, ref.keys)
+          and np.array_equal(got.variants, ref.variants)
+          and np.array_equal(got.counts.astype(np.int64),
+                             ref.counts.astype(np.int64)),
+          "phase 10: merge of the deleted halves differs from k31.skf")
+    same, size = same_bytes(merged + ".skf", k31)
+    log(f"phase 10 [delete, merge]: delete of genomes 04-20 (-f) "
+        f"{t_del04:.3f} s wall ({skf.load(first4 + '.skf').ksize} rows "
+        f"left), of 00-03 {t_delrest:.3f} s, merge of the two {t_merge:.3f} "
+        f"s: keys, variants, counts and names equal to k31.skf's; .skf "
+        f"bytes {'equal' if same else 'NOT equal'} ({size} bytes)")
+
+    lo_dir = os.path.join(WORK, "lo")
+    os.makedirs(lo_dir, exist_ok=True)
+    paths = []
+    for s in range(LO_GENOMES):
+        chrom = read_genome(cohort[s][0])[0][:LO_BASES]
+        path = os.path.join(lo_dir, f"genome{s:02d}.fa")
+        with open(path, "wb") as f:
+            f.write(b">chromosome\n" + chrom.tobytes() + b"\n")
+        paths.append(path)
+    for k in (31, 63):
+        cli.main(["build", "-k", str(k), "-o", os.path.join(lo_dir, f"k{k}"),
+                  "--device", DEVICE, *paths])
+    threads = min(8, os.cpu_count())
+    runs = [
+        ("k31_t1", 31, ["--threads", "1", "-r", paths[0]]),
+        (f"k31_t{threads}", 31, ["--threads", str(threads), "-r", paths[0]]),
+        ("k63", 63, []),
+    ]
+    skalo_log = logging.getLogger("ska_tpu_torch.skalo")
+    skalo_log.setLevel(logging.INFO)
+    skalo_log.propagate = False
+    suffixes = ("_snps.fas", "_snps.vcf", "_indels.vcf", "_pseudo_genomes.fas")
+    outputs = {}
+    t_all = time.perf_counter()
+    for tag, k, extra in runs:
+        stages = StageLog()
+        skalo_log.addHandler(stages)
+        try:
+            prefix = os.path.join(lo_dir, f"lo_{tag}")
+            wall = host_run(cli, torchinit, [
+                "lo", os.path.join(lo_dir, f"k{k}.skf"), prefix, "-v", *extra])
+        finally:
+            skalo_log.removeHandler(stages)
+        outputs[tag] = {}
+        for suffix in suffixes:
+            if os.path.exists(prefix + suffix):
+                with open(prefix + suffix, "rb") as f:
+                    outputs[tag][suffix] = f.read()
+        fas = outputs[tag]["_snps.fas"].split(b"\n")
+        n_snps = len(fas[1])
+        n_indels = sum(1 for ln in outputs[tag]["_indels.vcf"].split(b"\n")
+                       if ln and not ln.startswith(b"#"))
+        check(len(fas) == 2 * LO_GENOMES + 1 and n_snps > 0,
+              f"phase 10 [lo {tag}]: _snps.fas holds {len(fas)} lines, "
+              f"{n_snps} SNPs")
+        times = ", ".join(f"{name} {t:.3f} s"
+                          for name, t in stages.stages().items())
+        paths_kept = stages.at(r"\((\d+) paths\)")[1][1]
+        log(f"phase 10 [lo {tag}]: {wall:.3f} s wall ({times}); {paths_kept} "
+            f"kept paths, {n_snps} SNPs, {n_indels} indel records, files "
+            f"{sorted(outputs[tag])}")
+    with_ref = [tag for tag, _, extra in runs if "-r" in extra]
+    check(len(outputs[with_ref[0]]) == 4
+          and outputs[with_ref[0]] == outputs[with_ref[1]],
+          "phase 10: lo's four output files differ between thread counts")
+    log(f"phase 10 [lo]: the four files of {with_ref[0]} and {with_ref[1]} "
+        f"byte-equal; the three runs {time.perf_counter() - t_all:.1f} s")
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -1429,6 +1653,11 @@ def main():
     t0 = time.perf_counter()
     launches_dist = phase_dist(torch, torchinit, grams)
     log(f"phase 9: {time.perf_counter() - t0:.1f} s in all")
+
+    # phase 10: nk, delete, merge and lo, host code launching no kernel
+    t0 = time.perf_counter()
+    phase_host_cmds(cli, torchinit, cohort)
+    log(f"phase 10: {time.perf_counter() - t0:.1f} s in all")
     check("jax" not in sys.modules, "jax was imported")
 
     w1, w2 = sort_res[1], sort_res[2]

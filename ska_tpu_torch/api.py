@@ -4,7 +4,8 @@
 host library's row filters, a copy of the JAX package's; ``map_mode``
 (reference scan and lookup), ``distance_mode`` (the class Gram) and
 ``weed_mode`` (the weed FASTA's scan) run their device parts on
-``device``.
+``device``. ``merge_mode`` and ``delete_mode`` are host code, as in the
+JAX package.
 """
 
 import math
@@ -153,6 +154,19 @@ def distance_mode(arr: SkaArray, out_fh, min_freq: float, filt_ambig: bool,
     for i, row in enumerate(dists):
         for d, j in zip(row, range(i + 1, len(names))):
             out_fh.write(f"{names[i]}\t{names[j]}\t{d}\n")
+
+
+def merge_mode(skf_files: List[str], output: str):
+    """`ska merge` (generic_modes.rs:90-106)."""
+    arrays = [skf.load(f) for f in skf_files]
+    merged = extend_arrays(arrays)
+    skf.save(merged, output)
+
+
+def delete_mode(arr: SkaArray, names: List[str], output: str):
+    """`ska delete` (generic_modes.rs:192-210)."""
+    arr.delete_samples(names)
+    skf.save(arr, output)
 
 
 def weed_mode(

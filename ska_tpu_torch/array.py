@@ -1,6 +1,6 @@
 """Static multi-sample split k-mer array (the `.skf` content); the port's
-copy of what `build`, `load`, `align`, `map`, `distance` and `weed` use
-of ska_tpu/array.py.
+copy of what `build`, `load`, `align`, `map`, `distance`, `weed`,
+`delete` and `nk` use of ska_tpu/array.py.
 
 Counterpart of reference MergeSkaArray (src/merge_ska_array.rs:108-126):
 rows are split k-mers (sorted by packed key), columns are samples,
@@ -14,10 +14,12 @@ from typing import List
 import numpy as np
 
 from .constants import SKA_VERSION
-from .encoding import IS_AMBIGUOUS
+from .encoding import IS_AMBIGUOUS, LETTER_CODE
 from .io import native
 from .io.fastx import write_fasta
 from .ops import npkeys as K
+
+_GAP = ord("-")
 
 
 @dataclass
@@ -43,6 +45,9 @@ class SkaArray:
     @property
     def kbits(self) -> int:
         return 64 * self.keys.shape[1]
+
+    def n_sample_kmers(self):
+        return (self.variants != _GAP).sum(axis=0)
 
     def sorted_view(self):
         """(sorted_keys, row_permutation) for lookups; perm None means
@@ -74,6 +79,26 @@ class SkaArray:
             self.variants, filter_ambig_as_missing, IS_AMBIGUOUS.view(np.uint8))
         self.counts = counts
         self._take_rows(counts > 0)
+
+    def delete_samples(self, del_names):
+        """Remove named samples, update counts, drop empty rows
+        (merge_ska_array.rs:231-271)."""
+        if len(del_names) == 0 or len(del_names) == self.nsamples:
+            raise ValueError("Invalid number of samples to remove")
+        del_set = set(del_names)
+        keep_cols = []
+        new_names = []
+        for idx, name in enumerate(self.names):
+            if name in del_set:
+                del_set.discard(name)
+            else:
+                keep_cols.append(idx)
+                new_names.append(name)
+        if del_set:
+            raise ValueError(f"Could not find sample(s): {sorted(del_set)}")
+        self.variants = self.variants[:, keep_cols]
+        self.names = new_names
+        self.update_counts(False)
 
     # --- site filters (merge_ska_array.rs:289-402) ------------------------
 
@@ -117,6 +142,59 @@ class SkaArray:
         vt = np.ascontiguousarray(self.variants.T)
         for name, row in zip(self.names, vt):
             write_fasta(name, row.tobytes(), fh)
+
+    # --- nk output (merge_ska_array.rs:649-698) ----------------------------
+
+    def nk_display(self) -> str:
+        rc = "true" if self.rc else "false"
+        names = ", ".join(f'"{n}"' for n in self.names)
+        kmers = ", ".join(str(int(x)) for x in self.n_sample_kmers())
+        return (
+            f"ska_version={self.ska_version}\n"
+            f"k={self.k}\n"
+            f"k_bits={self.kbits}\n"
+            f"rc={rc}\n"
+            f"k-mers={self.ksize}\n"
+            f"samples={self.nsamples}\n"
+            f"sample_names=[{names}]\n"
+            f"sample_kmers=[{kmers}]\n"
+        )
+
+    def nk_full_info(self) -> str:
+        """One fixed-width line per split k-mer (upper half, tab, lower
+        half, tab, comma-joined middle bases), assembled as one uint8
+        matrix."""
+        half = (self.k - 1) // 2
+        kb = self.k - 1
+        n = self.ksize
+        if n == 0:
+            return ""
+        W = self.keys.shape[1]
+        hi = self.keys[:, 0] if W == 2 else np.zeros(n, np.uint64)
+        lo = self.keys[:, W - 1]
+        lut = np.frombuffer(bytes(LETTER_CODE[:4]), dtype=np.uint8)
+        chars = np.empty((n, kb), np.uint8)
+        for j in range(kb):
+            bits = 2 * (kb - 1 - j)
+            if bits >= 64:
+                c = (hi >> np.uint64(bits - 64)) & np.uint64(3)
+            elif bits > 0:
+                c = ((lo >> np.uint64(bits)) | (hi << np.uint64(64 - bits))) & np.uint64(3)
+            else:
+                c = lo & np.uint64(3)
+            chars[:, j] = lut[c.astype(np.int64)]
+        S = self.nsamples
+        width = kb + 2 + (2 * S - 1) + 1
+        out = np.empty((n, width), np.uint8)
+        out[:, :half] = chars[:, :half]
+        out[:, half] = 9  # \t
+        out[:, half + 1 : kb + 1] = chars[:, half:]
+        out[:, kb + 1] = 9
+        out[:, kb + 2 : kb + 1 + 2 * S : 2] = self.variants
+        if S > 1:
+            out[:, kb + 3 : kb + 1 + 2 * S : 2] = ord(",")
+        out[:, -1] = 10  # \n
+        return out.tobytes().decode()
 
     # --- distances (merge_ska_array.rs:416-438, 587-632) -------------------
 

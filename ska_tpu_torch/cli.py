@@ -1,14 +1,17 @@
-"""``python -m ska_tpu_torch build|align|cov|map|distance|weed``.
+"""``python -m ska_tpu_torch <cmd>``, for all ten subcommands: build,
+align, map, distance, merge, delete, weed, nk, cov and lo.
 
 The grammar is the JAX package's, whole (``build_parser``, a copy of
 ska_tpu/cli.py's mirror of the reference's clap CLI, src/cli.rs:167-426),
 plus ``--device`` (default: SKA_DEVICE, else ``cuda``), which may stand
-anywhere on the line. Subcommands that are not ported yet are refused.
+anywhere on the line. ``merge``, ``delete``, ``nk`` and ``lo`` are host
+code, as in the JAX package, which sends no part of them to its
+accelerator: ``--device`` is accepted and has nothing to do for them.
 ``main`` is ska_tpu.cli's wrapper: a closed stdout exits 141 without a
 traceback, a MemoryError with guidance prints it and exits 1, the banner
-and the footer go to stderr, and ``--threads`` sets SKA_THREADS. With
-SKA_COORDINATOR set the process joins its group first
-(parallel/multihost.py).
+and the footer go to stderr, and ``--threads`` sets SKA_THREADS (which
+map's AlnWriter and lo's two C++ cores read). With SKA_COORDINATOR set
+the process joins its group first (parallel/multihost.py).
 """
 
 import argparse
@@ -34,7 +37,6 @@ from .constants import (
     check_k,
 )
 
-PORTED = ("build", "align", "cov", "map", "distance", "weed")
 log = logging.getLogger("ska_tpu_torch")
 
 
@@ -203,9 +205,6 @@ def _main(argv=None):
     parser = build_parser()
     parser.prog = "python -m ska_tpu_torch"
     args = parser.parse_args(rest)
-    if args.command not in PORTED:
-        parser.exit(2, f"{parser.prog}: '{args.command}' is not ported yet "
-                       f"(ported: {', '.join(PORTED)}); run it with ./ska.py\n")
     logging.basicConfig(
         level=logging.INFO if args.verbose else logging.WARNING,
         format="%(asctime)s %(levelname)s [%(name)s] %(message)s",
@@ -215,8 +214,9 @@ def _main(argv=None):
     start = time.time()
 
     # the reference sizes its rayon pool with --threads; here the host
-    # library's threaded stages (map's AlnWriter) read SKA_THREADS. An
-    # explicit --threads wins over an inherited SKA_THREADS.
+    # library's threaded stages (map's AlnWriter, lo's graph walk and SNP
+    # stage) read SKA_THREADS. An explicit --threads wins over an
+    # inherited SKA_THREADS.
     if getattr(args, "threads", None) is not None:
         os.environ["SKA_THREADS"] = str(args.threads)
 
@@ -300,6 +300,32 @@ def _run(args, device) -> bool:
         with _ostream(args.output, primary=primary) as fh:
             api.distance_mode(arr, fh, args.min_freq, not args.allow_ambiguous,
                               device=device)
+    elif cmd == "merge":
+        if len(args.skf_files) < 2:
+            raise SystemExit("Need at least two files to merge")
+        api.merge_mode(args.skf_files, args.output)
+    elif cmd == "delete":
+        input_files = fastx.get_input_list(args.file_list, args.names or None)
+        names = [t[0] for t in input_files]
+        arr = skf.load(args.skf_file)
+        api.delete_mode(arr, names, args.output or args.skf_file)
+    elif cmd == "nk":
+        arr = skf.load(args.skf_file)
+        print(arr.nk_display())
+        if args.full_info:
+            print(arr.nk_full_info())
+    elif cmd == "lo":
+        from .skalo import SkaloConfig, run_skalo
+
+        arr = api.load_array([args.input_skf])
+        config = SkaloConfig(
+            output_name=args.output,
+            max_missing=args.missing,
+            max_depth=args.depth,
+            max_indel_kmers=args.indel_kmers,
+            reference_genome=args.reference,
+        )
+        run_skalo(arr, config)
     else:
         arr = skf.load(args.skf_file)
         api.weed_mode(

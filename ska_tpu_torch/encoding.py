@@ -8,10 +8,13 @@ IUPAC table (bit_encoding.rs:388-453). ASCII IUPAC letters appear only
 at the host boundary: ``SET_TO_ASCII`` when the variants matrix leaves
 the device, ``IS_AMBIGUOUS`` in the site filters, ``RC_IUPAC`` for the
 reverse-strand hits of `ska map`, ``ASCII_TO_SET`` and ``BASE_PROB`` in
-`ska distance`.
+`ska distance`; ``LETTER_CODE`` decodes 2-bit codes for `ska nk
+--full-info`.
 """
 
 import numpy as np
+
+LETTER_CODE = np.frombuffer(b"ACTG", dtype=np.uint8)  # 2-bit code -> ASCII
 
 # 16-entry set -> ASCII IUPAC (0 = missing '-')
 _SET_ASCII = {

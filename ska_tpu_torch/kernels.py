@@ -5,11 +5,12 @@ Two routes, both with a plain C interface bound by ctypes:
 - each hand-written CUDA kernel, ``csrc/<name>.cu``, is compiled by nvcc
   for Hopper (sm_90a) into ``build/ska_tpu_torch/lib<name>.so``;
 - the host library, ``csrc/host/*.cpp`` (the .skf codec, the batch
-  union and the site filters), is compiled by g++ into
-  ``build/ska_tpu_torch/libska_host.so``.
+  union, the site filters, map's AlnWriter and the two `ska lo` cores),
+  is compiled by g++ into ``build/ska_tpu_torch/libska_host.so``.
 
 ``build/`` sits at the root of the checkout. A library is built at first
-use and again whenever a source is newer than it. Nothing is compiled
+use and again whenever a source, or a header it includes
+(``csrc/host/*.h``), is newer than it. Nothing is compiled
 when a module is imported, and nothing here falls back to another
 route: a missing compiler or a failed build raises. Each build writes a
 file of its own and renames it into place, so concurrent processes
@@ -53,11 +54,12 @@ def _gxx() -> str:
     raise RuntimeError("g++ not found: the host library cannot be built")
 
 
-def _compile(compiler: str, flags, srcs, so: str) -> str:
-    """Compile srcs into so unless it is newer than all of them. The
-    compiler's report is kept beside it as <so>.log."""
+def _compile(compiler: str, flags, srcs, so: str, headers=()) -> str:
+    """Compile srcs into so unless it is newer than all of them and of
+    the headers they include. The compiler's report is kept beside it as
+    <so>.log."""
     if os.path.exists(so) and os.path.getmtime(so) >= max(
-            os.path.getmtime(s) for s in srcs):
+            os.path.getmtime(s) for s in (*srcs, *headers)):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
@@ -84,10 +86,11 @@ def build(name: str) -> str:
 
 def build_host() -> str:
     """Compile csrc/host/*.cpp with g++ into libska_host.so unless it is
-    up to date; returns the library's path."""
+    newer than them and csrc/host/*.h; returns the library's path."""
     srcs = sorted(glob.glob(os.path.join(HOST_SRC_DIR, "*.cpp")))
+    headers = glob.glob(os.path.join(HOST_SRC_DIR, "*.h"))
     return _compile(_gxx(), GXX_FLAGS, srcs,
-                    os.path.join(BUILD_DIR, "libska_host.so"))
+                    os.path.join(BUILD_DIR, "libska_host.so"), headers)
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -140,15 +140,6 @@ def test_build_steps_are_profiler_spans(tmp_path):
     assert spans == {f"ska::{s}" for s in steps}
 
 
-def test_cli_refuses_unported_commands(tmp_path):
-    r = subprocess.run(
-        [sys.executable, "-m", "ska_tpu_torch", "nk", "x.skf"],
-        cwd=REPO, capture_output=True, timeout=120,
-    )
-    assert r.returncode == 2
-    assert b"not ported" in r.stderr
-
-
 def test_device_choice(monkeypatch):
     monkeypatch.setenv("SKA_DEVICE", "cpu")
     assert get_device() == torch.device("cpu")

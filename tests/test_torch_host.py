@@ -8,12 +8,15 @@ from its own C++ host library), and imports nothing of ska_tpu:
   reads them back, at W=1 and W=2 (u128 keys) with 1 and 5 samples;
 - merge.extend_arrays equals ska_tpu.merge.extend_arrays;
 - api.align writes the bytes of ska_tpu.api.align for every filter;
+- kernels.build_host rebuilds the library when a header is newer;
 - no module of the port, and no line of chip_smoke.py, imports ska_tpu.
 """
 
 import ast
+import ctypes
 import io
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -23,6 +26,7 @@ from ska_tpu import array as jarray
 from ska_tpu import merge as jmerge
 from ska_tpu.io import skf as jskf
 from ska_tpu_torch import api as tapi
+from ska_tpu_torch import kernels
 from ska_tpu_torch import array as tarray
 from ska_tpu_torch import merge as tmerge
 from ska_tpu_torch.io import skf as tskf
@@ -118,6 +122,34 @@ def test_align_bytes_match_jax(filter_type, ambig_mask, const_gaps,
         out.append(fh.getvalue())
     assert out[0] == out[1]
     assert out[0].count(b">") == 6
+
+
+def test_build_host_rebuilds_when_a_header_changes(tmp_path, monkeypatch):
+    """A header in csrc/host counts among the files that decide a
+    rebuild, though g++ is given the .cpp files alone."""
+    src = tmp_path / "src"
+    src.mkdir()
+    header = src / "pool.h"
+    header.write_text("#pragma once\ninline int ska_one() { return 1; }\n")
+    (src / "a.cpp").write_text(
+        '#include "pool.h"\nextern "C" int ska_probe() { return ska_one(); }\n')
+    monkeypatch.setattr(kernels, "HOST_SRC_DIR", str(src))
+    monkeypatch.setattr(kernels, "BUILD_DIR", str(tmp_path / "build"))
+
+    def probe(so, tag):
+        # a copy under a new name: dlopen hands back a loaded path as is
+        copy = str(tmp_path / f"lib{tag}.so")
+        shutil.copy(so, copy)
+        return ctypes.CDLL(copy).ska_probe()
+
+    so = kernels.build_host()
+    assert probe(so, "first") == 1
+    built = os.path.getmtime(so)
+    assert kernels.build_host() == so and os.path.getmtime(so) == built
+    header.write_text("#pragma once\ninline int ska_one() { return 2; }\n")
+    os.utime(header, (built + 10, built + 10))
+    assert kernels.build_host() == so and os.path.getmtime(so) > built
+    assert probe(so, "second") == 2
 
 
 def _port_sources():
