@@ -5,7 +5,8 @@
 
 Run from the root of a checkout; it needs one CUDA card and refuses to
 run without one. --dist-only runs phase 1, builds what phase 9 compares
-with, and phase 9: for a machine of several cards. Ten phases, and any
+with, phase 9 and graft_entry.dryrun_multichip on every card: for a
+machine of several cards. Eleven phases, and any
 failure ends the run with a non-zero exit (nothing is caught, nothing
 moves to the CPU or to gloo):
 
@@ -94,7 +95,9 @@ moves to the CPU or to gloo):
    distributed_lookup of genome00.fa's split k-mers in k31.skf, equal to
    the serial searchsorted_via_sort; distributed_class_gram of phase 8's
    two inputs, equal to its int64 Grams; each call's wall time and radix
-   launches, and the k=31 build once more under torch.profiler.
+   launches; the k=31 and k=63 builds and the lookup once more under
+   torch.profiler, each with the radix kernels' device time beside their
+   bound (the operands of every sort it made read and written once).
 10. The host commands, through the CLI with --device cuda, each with the
    radix kernel launched 0 times: `ska nk` (and --full-info) of k31.skf;
    `ska delete` of genomes 04-20 (a -f list) and of 00-03 from k31.skf,
@@ -105,6 +108,24 @@ moves to the CPU or to gloo):
    --threads 1 and min(8, cores), all four output files byte-equal, and
    at k=63 without a reference; each run's wall time and the stage times
    of its -v log (graph walk, group assembly, path filter, SNP stage).
+11. The front ends, through their functions on the card: webapi.py's
+   SkaData at k=31 indexes genome00.fa (two records, two JSON chunks)
+   and maps genomes 01, 02 and 03 (FASTA) and genome 03's 30x pair of
+   phase 5 (one dispatch of 2^26 rows, no count or quality filter), then
+   get_reference(); at k=63 it maps genome 01; AlignData at k=31 aligns
+   genomes 00-07 (one batched dispatch of 8 x 2^21), then adds genome
+   08 and the 30x pair (the pairing heuristic, the build cache, a
+   10-taxon NJ tree). SkaData and AlignData also run on the first
+   200,000 bases of genomes 00-02's chromosomes and phase 6's read pairs
+   of genomes 03 and 04. Every FASTA call and every cut-reads call must
+   give the JSON string of the plain CPU route (this script with
+   --webapi-cpu, a process of its own, in a thread beside the card's
+   calls); the 30x reads query must map at least 99% of the reference
+   positions that genome03.fa maps; every map and align call must launch
+   the radix kernel. Then graft_entry.entry()'s step on the card, every
+   output equal to the same step on the CPU, and
+   graft_entry.dryrun_multichip(torch.cuda.device_count()) on NCCL
+   (rows > 0, the radix kernel launched on rank 0).
 
 The last lines are the card's name and power limit (nvidia-smi), one
 JSON line with each kernel's launches, error and times, and the result
@@ -1170,13 +1191,13 @@ def join_group(torch, rank, world, port):
 
 
 def dist_calls(torch, torchinit, grams, on_result,
-               profiled=contextlib.nullcontext()):
+               profiled=lambda tag: contextlib.nullcontext()):
     """The sharded calls of phase 9, in one order on every rank (each is
     collective): the build of phase 3's cohort at k=31 and of its first 4
-    genomes at k=63, the k=31 build once more inside the context manager
-    `profiled`, the lookup of genome00.fa's split k-mers in k31.skf, and
-    the class Gram of phase 8's two inputs. on_result(tag, result,
-    wall s, radix launches) sees each."""
+    genomes at k=63, the lookup of genome00.fa's split k-mers in k31.skf,
+    each once more inside the context manager profiled(tag), and the
+    class Gram of phase 8's two inputs. on_result(tag, result, wall s,
+    radix launches) sees each."""
     from ska_tpu_torch import api
     from ska_tpu_torch.constants import DEFAULT_MINCOUNT, DEFAULT_MINQUAL, QUAL_STRICT
     from ska_tpu_torch.io import fastx, skf
@@ -1207,11 +1228,15 @@ def dist_calls(torch, torchinit, grams, on_result,
 
     timed("build k31", build(31, GENOMES))
     timed("build k63", build(63, GENOMES_K63))
-    timed("profile k31", build(31, GENOMES), profiled)
+    timed("profile k31", build(31, GENOMES), profiled("profile k31"))
+    timed("profile k63", build(63, GENOMES_K63), profiled("profile k63"))
     arr = skf.load(os.path.join(WORK, "k31.skf"))
     sorted_keys, _ = arr.sorted_view()
     kmers = RefSka(31, paths[0], arr.rc, False, False, device=DEVICE).kmers
     timed("lookup", lambda: distributed_lookup(sorted_keys, kmers, DEVICE))
+    timed("profile lookup",
+          lambda: distributed_lookup(sorted_keys, kmers, DEVICE),
+          profiled("profile lookup"))
     for tag, (v, _) in grams.items():
         timed(f"gram {tag}", lambda: distributed_class_gram(v, DEVICE))
 
@@ -1252,10 +1277,18 @@ def phase_dist(torch, torchinit, grams):
             f"(backend {dist.get_backend()}), rank 0 on "
             f"{torch.cuda.get_device_name(0)}, joined and warmed up in "
             f"{time.perf_counter() - t0:.3f} s")
-        results = {}
-        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        results, profs = {}, {}
+
+        @contextlib.contextmanager
+        def profiled(tag):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof, \
+                    SortBytes() as sorts:
+                yield
+            profs[tag] = (prof, sorts)
+
         dist_calls(torch, torchinit, grams,
-                   lambda tag, *res: results.__setitem__(tag, res), prof)
+                   lambda tag, *res: results.__setitem__(tag, res), profiled)
         dist.destroy_process_group()
         done = True
     finally:
@@ -1269,7 +1302,8 @@ def phase_dist(torch, torchinit, grams):
                 h.wait()
     check(all(h.returncode == 0 for h in helpers), "a phase 9 rank failed")
 
-    for k, tag in ((31, "build k31"), (63, "build k63"), (31, "profile k31")):
+    for k, tag in ((31, "build k31"), (63, "build k63"), (31, "profile k31"),
+                   (63, "profile k63")):
         arr, wall, launches = results[tag]
         want = skf.load(os.path.join(WORK, f"k{k}.skf"))
         check(arr.names == want.names
@@ -1283,6 +1317,9 @@ def phase_dist(torch, torchinit, grams):
             f"{wall:.3f} s wall, {launches} radix launches")
 
     (found, rows), wall, launches = results["lookup"]
+    check(all(np.array_equal(a, b) for a, b in zip(
+        (found, rows), results["profile lookup"][0])),
+          "phase 9 lookup: the profiled lookup gave other rows")
     arr = skf.load(os.path.join(WORK, "k31.skf"))
     sorted_keys, _ = arr.sorted_view()
     kmers = RefSka(31, os.path.join(WORK, "genome00.fa"), arr.rc, False, False,
@@ -1307,12 +1344,55 @@ def phase_dist(torch, torchinit, grams):
             f"int64 Gram equal to phase 8's class_gram; {wall:.3f} s wall, "
             f"{launches} radix launches")
 
+    radix = {}
+    for tag in ("k31", "k63", "lookup"):
+        prof, sorts = profs[f"profile {tag}"]
+        spans, kernels = profile_events(prof)
+        ms = sum(t for name, (_, t) in kernels.items()
+                 if "histogram_kernel" in name or "scatter_kernel" in name) / 1e3
+        bound = 2 * sum(b for _, b in sorts.sorts) / HBM_BYTES_PER_S * 1e3
+        shapes = {}
+        for shape, _ in sorts.sorts:
+            shapes[shape] = shapes.get(shape, 0) + 1
+        radix[tag] = {"ms": ms, "bound_ms": bound}
+        log(f"phase 9 [radix, {tag}]: {len(sorts.sorts)} sorts "
+            f"({', '.join(f'{n} x {s}' for s, n in shapes.items())}): "
+            f"kernels {ms:.3f} ms on the card (profiler), bound {bound:.3f} "
+            f"ms (each operand read and written once at 3.35 TB/s)")
     wall = results["profile k31"][1]
-    spans, kernels = profile_events(prof)
+    spans, kernels = profile_events(profs["profile k31"][0])
     log(f"phase 9: the k=31 sharded build under torch.profiler: {wall:.3f} s "
         f"wall (unprofiled: {results['build k31'][1]:.3f} s)")
     log_profile("phase 9", "the sharded k=31 build", wall, spans, kernels)
-    return sum(results[t][2] for t in ("build k31", "build k63", "lookup"))
+    return (sum(results[t][2] for t in ("build k31", "build k63", "lookup")),
+            radix)
+
+
+class SortBytes:
+    """Records each radix sort (ops/sort.py _sort_cuda) made while
+    installed: (operand shape and dtypes, bytes of all its operands)."""
+
+    def __init__(self):
+        from ska_tpu_torch.ops import sort
+
+        self.mod, self.sorts = sort, []
+
+    def __enter__(self):
+        real = self.real = self.mod._sort_cuda
+
+        def spy(ops, num_keys):
+            ops = tuple(ops)
+            shape = "x".join(map(str, ops[0].shape)) + " " + "+".join(
+                str(o.dtype).split(".")[-1] for o in ops)
+            self.sorts.append((shape, sum(o.numel() * o.element_size()
+                                          for o in ops)))
+            return real(ops, num_keys)
+
+        self.mod._sort_cuda = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._sort_cuda = self.real
 
 
 def dist_only(torch, cli, torchinit, seed, smi):
@@ -1329,9 +1409,12 @@ def dist_only(torch, cli, torchinit, seed, smi):
     grams = {tag: (v, D.class_gram(v, DEVICE))
              for tag, v in gram_inputs(torch, seed).items()}
     t0 = time.perf_counter()
-    launches = phase_dist(torch, torchinit, grams)
+    launches, _ = phase_dist(torch, torchinit, grams)
     log(f"phase 9: {time.perf_counter() - t0:.1f} s in all, {launches} radix "
         f"launches in the builds and the lookup")
+    from ska_tpu_torch import graft_entry
+
+    dryrun(torch, graft_entry, torch.cuda.device_count())
     check("jax" not in sys.modules, "jax was imported")
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -1564,6 +1647,213 @@ def phase_host_cmds(cli, torchinit, cohort):
         f"byte-equal; the three runs {time.perf_counter() - t_all:.1f} s")
 
 
+# ---------------------------------------------------------------- phase 11
+
+
+def webapi_plan():
+    """The front-end calls of phase 11: [(object tag, class, constructor
+    args, [(call tag, method, args, card only)])]. Full width: phase 3's
+    genomes and phase 5's 30x pair of genome 03; cut: phase 6's 200 kb
+    pairs and the same 200 kb of the genomes' chromosomes (WORK/webapi)."""
+    def g(s):
+        return os.path.join(WORK, f"genome{s:02d}.fa")
+
+    def cut(s):
+        return os.path.join(WORK, "webapi", f"genome{s:02d}.fa")
+
+    def small(s):
+        return [os.path.join(WORK, "small", f"genome{s:02d}_{m}.fastq")
+                for m in (1, 2)]
+
+    reads03 = [os.path.join(WORK, "reads", f"genome03_{m}.fastq") for m in (1, 2)]
+    return [
+        ("SkaData k31", "SkaData", (g(0), 31), [
+            ("map genome01", "map", (g(1),), False),
+            ("map genome02", "map", (g(2),), False),
+            ("map genome03", "map", (g(3),), False),
+            ("map genome03 30x", "map", tuple(reads03), True),
+            ("get_reference", "get_reference", (), False),
+        ]),
+        ("SkaData k63", "SkaData", (g(0), 63), [
+            ("map genome01", "map", (g(1),), False),
+        ]),
+        ("AlignData k31", "AlignData", (31,), [
+            ("align genomes 00-07", "align", ([g(s) for s in range(8)],), False),
+            ("align + genome08, genome03 30x", "align", ([g(8), *reads03],), True),
+        ]),
+        ("SkaData cut", "SkaData", (cut(0), 31), [
+            ("map genome03 reads", "map", tuple(small(3)), False),
+            ("map genome04 reads", "map", tuple(small(4)), False),
+            ("map genome01", "map", (cut(1),), False),
+        ]),
+        ("AlignData cut", "AlignData", (31,), [
+            ("align 00-02, reads 03-04", "align",
+             ([cut(0), cut(1), cut(2), *small(3), *small(4)],), False),
+        ]),
+    ]
+
+
+def run_webapi(device, torch=None, torchinit=None):
+    """Every call of webapi_plan() on `device`, in order; the card's run
+    (torchinit given) also makes the card-only calls, and zeroes the
+    launch counters just before each call (and each constructor) and
+    reads them just after. Returns {"object / call": (output, wall s,
+    radix launches)}, the output None for a constructor."""
+    from ska_tpu_torch import webapi
+
+    out = {}
+
+    def timed(tag, fn):
+        if torchinit:
+            torchinit.reset_launch_counts()
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        if torchinit:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = torchinit.launch_counts()["radix_sort"] if torchinit else 0
+        out[tag] = (res if isinstance(res, str) else None, wall, n)
+        return res
+
+    for obj_tag, cls, args, calls in webapi_plan():
+        obj = timed(obj_tag, lambda: getattr(webapi, cls)(*args, device=device))
+        for tag, method, cargs, card_only in calls:
+            if card_only and not torchinit:
+                continue
+            timed(f"{obj_tag} / {tag}", lambda: getattr(obj, method)(*cargs))
+    return out
+
+
+def webapi_cpu(path):
+    """--webapi-cpu: phase 11's plain CPU route, in a process of its own;
+    writes {tag: [output, wall s]} as JSON to `path`."""
+    res = run_webapi("cpu")
+    with open(path, "w") as f:
+        json.dump({tag: [r[0], r[1]] for tag, r in res.items()}, f)
+
+
+def mapped_share(fasta_json, reads_json):
+    """Share of the reference positions that the FASTA query maps (not
+    '-') that the reads query maps too."""
+    import numpy as np
+
+    a, b = ("".join(json.loads(x)["Mapped sequences"]).encode()
+            for x in (fasta_json, reads_json))
+    fa = np.frombuffer(a, np.uint8) != ord("-")
+    fq = np.frombuffer(b, np.uint8) != ord("-")
+    return float((fa & fq).sum() / fa.sum()), int(fa.sum())
+
+
+def phase_webapi(torch, torchinit, cohort):
+    """The in-memory API (webapi.py) and graft_entry on the card; the
+    FASTA and cut-reads calls against the plain CPU route, string for
+    string. Returns the radix launches of the card's calls."""
+    import numpy as np
+
+    from ska_tpu_torch import graft_entry
+
+    d = os.path.join(WORK, "webapi")
+    os.makedirs(d, exist_ok=True)
+    for s in range(3):
+        with open(os.path.join(d, f"genome{s:02d}.fa"), "wb") as f:
+            f.write(b">chromosome\n"
+                    + read_genome(cohort[s][0])[0][:SMALL_BASES].tobytes()
+                    + b"\n")
+    cpu_json = os.path.join(d, "cpu.json")
+
+    def cpu_route():
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--webapi-cpu", cpu_json], cwd=REPO,
+                           capture_output=True, text=True, timeout=900)
+        check(r.returncode == 0, f"phase 11 CPU route: {r.stderr[-3000:]}")
+        with open(cpu_json) as f:
+            return json.load(f), time.perf_counter() - t0
+
+    with cf.ThreadPoolExecutor(1) as pool:
+        cpu_future = pool.submit(cpu_route)
+        t0 = time.perf_counter()
+        card = run_webapi(DEVICE, torch, torchinit)
+        t_card = time.perf_counter() - t0
+        cpu, t_cpu = cpu_future.result()
+
+    launches = 0
+    for tag, (res, wall, n) in card.items():
+        is_call = "/" in tag and not tag.endswith("get_reference")
+        if is_call:
+            check(n > 0, f"phase 11 [{tag}]: the radix kernel was not launched")
+            launches += n
+        same = ""
+        if tag in cpu and res is not None:
+            check(res == cpu[tag][0],
+                  f"phase 11 [{tag}]: differs from the plain CPU route's")
+            same = (f", {len(res)} characters equal to the plain CPU "
+                    f"route's ({cpu[tag][1]:.3f} s there)")
+        log(f"phase 11 [{tag}]: {wall:.3f} s wall, {n} radix launches{same}")
+
+    share, n_pos = mapped_share(card["SkaData k31 / map genome03"][0],
+                                card["SkaData k31 / map genome03 30x"][0])
+    log(f"phase 11: the 30x reads query maps {100 * share:.3f}% of the "
+        f"{n_pos} reference positions that genome03.fa maps")
+    check(share >= 0.99, "phase 11: the reads query maps under 99% of the "
+          "FASTA query's positions")
+    doc = json.loads(card["AlignData k31 / align + genome08, genome03 30x"][0])
+    check(doc["names"] == [f"genome{s:02d}.fa" for s in range(9)]
+          + ["genome03_1.fastq"], f"phase 11: AlignData names {doc['names']}")
+    # the Newick names drop ".fa" wherever it stands: genome03_1stq
+    taxa = [f"genome{s:02d}" for s in range(9)] + ["genome03_1stq"]
+    check(all(f"{t}:" in doc["newick"] for t in taxa)
+          and doc["newick"].endswith(");")
+          and doc["alignment"].count(">") == 10,
+          "phase 11: the 10-sample tree or alignment is malformed")
+    log(f"phase 11: the card's calls {t_card:.1f} s in all, the CPU route's "
+        f"{t_cpu:.1f} s beside them (a process of its own); 10-taxon NJ "
+        f"tree of {len(doc['newick'])} characters, alignment of "
+        f"{len(doc['alignment'])}")
+
+    # graft_entry: the flagship step on the card and on the CPU
+    fn, args = graft_entry.entry()
+    torchinit.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = fn(*args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = torchinit.launch_counts()["radix_sort"]
+    want = fn(*(a.cpu() for a in args))
+    check(n > 0, "phase 11 [entry]: the radix kernel was not launched")
+    check(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)),
+          "phase 11 [entry]: the card's outputs differ from the CPU's")
+    launches += n
+    log(f"phase 11 [entry]: merged_build_pipeline of {tuple(args[0].shape)} "
+        f"bases, {int(got[3])} rows, every output equal to the CPU's; "
+        f"{wall:.3f} s wall (first call), {n} radix launches")
+    dryrun(torch, graft_entry, torch.cuda.device_count())
+    return launches
+
+
+def dryrun(torch, graft_entry, world):
+    """graft_entry.dryrun_multichip(world) on the cards: NCCL, rows > 0
+    and the radix kernel launched on rank 0 (its report, logged)."""
+    records = StageLog()
+    logger = logging.getLogger("ska_tpu_torch")
+    logger.addHandler(records)
+    logger.setLevel(logging.INFO)
+    try:
+        t0 = time.perf_counter()
+        n_rows = graft_entry.dryrun_multichip(world)
+        wall = time.perf_counter() - t0
+    finally:
+        logger.removeHandler(records)
+    report = json.loads(records.at(r"^dryrun_multichip: (.*)")[1][1])
+    check(n_rows > 0 and report["backend"] == "nccl"
+          and report["radix_sort"] > 0,
+          f"phase 11 [dryrun_multichip({world})]: {report}")
+    log(f"phase 11 [dryrun_multichip({world})]: {report}; {wall:.3f} s wall "
+        f"(rank processes started, joined and run)")
+    return report
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -1577,6 +1867,8 @@ def main():
     # phase 9's ranks 1..: processes of this script, one per further card
     for flag in ("--dist-rank", "--dist-world", "--dist-port"):
         ap.add_argument(flag, type=int, default=None, help=argparse.SUPPRESS)
+    # phase 11's plain CPU route: a process of this script
+    ap.add_argument("--webapi-cpu", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -1585,6 +1877,8 @@ def main():
         sys.exit("chip_smoke: torch finds no CUDA device; it runs on a card only")
     if args.dist_rank is not None:
         return dist_helper(args.dist_rank, args.dist_world, args.dist_port)
+    if args.webapi_cpu is not None:
+        return webapi_cpu(args.webapi_cpu)
     from ska_tpu_torch import cli, kernels, torchinit
     from ska_tpu_torch.ops import keys as TK
     from ska_tpu_torch.ops import sort as SO
@@ -1651,13 +1945,18 @@ def main():
 
     # phase 9: the sharded paths on an NCCL group, one rank per card
     t0 = time.perf_counter()
-    launches_dist = phase_dist(torch, torchinit, grams)
+    launches_dist, radix_dist = phase_dist(torch, torchinit, grams)
     log(f"phase 9: {time.perf_counter() - t0:.1f} s in all")
 
     # phase 10: nk, delete, merge and lo, host code launching no kernel
     t0 = time.perf_counter()
     phase_host_cmds(cli, torchinit, cohort)
     log(f"phase 10: {time.perf_counter() - t0:.1f} s in all")
+
+    # phase 11: the front ends (webapi, graft_entry)
+    t0 = time.perf_counter()
+    launches_webapi = phase_webapi(torch, torchinit, cohort)
+    log(f"phase 11: {time.perf_counter() - t0:.1f} s in all")
     check("jax" not in sys.modules, "jax was imported")
 
     w1, w2 = sort_res[1], sort_res[2]
@@ -1668,7 +1967,7 @@ def main():
         "replaces": "ska_tpu/ops/sort.py:178",
         "launches": (launches31["radix_sort"] + launches63["radix_sort"]
                      + launches_reads["radix_sort"] + launches_map
-                     + launches_dist),
+                     + launches_dist + launches_webapi),
         "max_abs_err": max(r["max_abs_err"] for r in (
             *sort_res.values(), *limbs_res.values(), reads_res,
             *lookup_res.values())),
@@ -1699,6 +1998,9 @@ def main():
         "reads_global_launches_per_sort": reads_res["launches_per_sort"],
         "launches_map": launches_map,
         "launches_dist": launches_dist,
+        "dist_ms": {t: r["ms"] for t, r in radix_dist.items()},
+        "dist_bound_ms": {t: r["bound_ms"] for t, r in radix_dist.items()},
+        "launches_webapi": launches_webapi,
         "lookup_ms": lookup_res[1]["ms"],
         "lookup_plain_ms": lookup_res[1]["plain_ms"],
         "lookup_bound_ms": lookup_res[1]["bound_ms"],

@@ -10,13 +10,19 @@ on the build path, the bitonic sort of ``ska_tpu/ops/sort.py``, is a
 hand-written Hopper radix sort here (``csrc/radix_sort.cu``, wrapped by
 ``ops/sort.py``).
 
-Ported so far: ``ska build`` of FASTA and paired FASTQ samples (count
-and quality filters, samples over the dispatch cap built in chunks,
-``--min-count auto``), ``ska align``, ``ska cov``, ``ska map`` (the
-reference scan on the device, the lookup on the radix sort kernel),
-``ska distance`` (the class Gram on the device) and ``ska weed``
-(``python -m ska_tpu_torch build|align|cov|map|distance|weed``); the
+Ported: all ten subcommands (``python -m ska_tpu_torch
+build|align|cov|map|distance|weed|merge|delete|nk|lo``): ``ska build``
+of FASTA and paired FASTQ samples (count and quality filters, samples
+over the dispatch cap built in chunks, ``--min-count auto``), ``ska
+map`` (the reference scan on the device, the lookup on the radix sort
+kernel), ``ska distance`` (the class Gram on the device), and the host
+commands ``merge``, ``delete``, ``nk`` and ``lo`` (its C++ cores). The
 build, the map lookup and the distance Gram also run sharded over a
 torch.distributed group, one process per card (``parallel/``). The
-package never imports jax.
+in-memory JSON API (``webapi``: SkaData, AlignData, neighbor joining,
+over the per-sample build of ``sample.build_sample(s)``) and the
+driver hooks (``graft_entry``: entry, dryrun_multichip) are ported too.
+Left out by design: the JAX package's pinned C++ host route
+(``host_cmds``, ``ska_host``, SKA_NATIVE_*), its pure-Python ``lo``
+graph and its pure-Python encoders. The package never imports jax.
 """

@@ -1,5 +1,6 @@
-"""Union of key-sorted split k-mer arrays (the port's copy of
-``extend_arrays`` of ska_tpu/merge.py).
+"""Merging on the host (the port's copy of ska_tpu/merge.py):
+``merge_samples`` of per-sample dictionaries into an array, and
+``extend_arrays``, the union of key-sorted split k-mer arrays.
 
 The reference merges per-sample hashmaps (src/merge_ska_dict.rs:160-193).
 Arrays built here are key-sorted, so the union of the batches of a
@@ -12,8 +13,47 @@ from typing import List
 import numpy as np
 
 from .array import SkaArray, _combine128
+from .encoding import SET_TO_ASCII
 from .io import native
 from .ops import npkeys as K
+from .sampletypes import SampleDict
+
+
+def merge_samples(samples: List[SampleDict]) -> SkaArray:
+    """Merge per-sample dictionaries into an array (rows sorted by key).
+
+    Equivalent to MergeSkaDict::append/merge + MergeSkaArray::new
+    (merge_ska_dict.rs:77-151, merge_ska_array.rs:166-186); missing
+    entries become b'-'.
+    """
+    if not samples:
+        raise ValueError("No samples to merge")
+    k = samples[0].k
+    rc = samples[0].rc
+    for s in samples[1:]:
+        if s.k != k:
+            raise ValueError(f"K-mer lengths do not match: {s.k} {k}")
+        if s.rc != rc:
+            raise ValueError("Strand use inconsistent")
+    all_keys = np.concatenate([s.keys for s in samples], axis=0)
+    all_sets = np.concatenate([s.sets for s in samples], axis=0)
+    all_sidx = np.concatenate(
+        [np.full(s.ksize, i, dtype=np.int32) for i, s in enumerate(samples)]
+    )
+    order = K.np_lex_argsort(all_keys)
+    skeys = all_keys[order]
+    if len(skeys) == 0:
+        raise ValueError("No split k-mers found")
+    first = np.ones(len(skeys), dtype=bool)
+    first[1:] = np.any(skeys[1:] != skeys[:-1], axis=-1)
+    ids = np.cumsum(first) - 1
+    n_rows = int(ids[-1]) + 1
+
+    variants = np.full((n_rows, len(samples)), ord("-"), dtype=np.uint8)
+    variants[ids, all_sidx[order]] = SET_TO_ASCII[all_sets[order]]
+    counts = np.bincount(ids, minlength=n_rows).astype(np.int64)
+    return SkaArray(k=k, rc=rc, names=[s.name for s in samples],
+                    keys=skeys[first], variants=variants, counts=counts)
 
 
 def _sorted_rows(a: SkaArray):

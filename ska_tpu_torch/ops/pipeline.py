@@ -235,6 +235,23 @@ def _qual_masks(base_ok, qual_bits, strict_valid: bool, has_qual: bool):
     return (base_ok & qual_ok if strict_valid else base_ok), qual_ok
 
 
+def merged_build_pipeline(seqs, valid, qual_ok, rec_last, k: int, rc: bool,
+                          W: int, is_reads: bool, use_mid_qual: bool,
+                          min_count: int):
+    """The merged build of (S, L) ASCII bytes and bool masks, with the
+    JAX package's merged_build_pipeline outputs: (ukeys (S*L, W) int64,
+    variants (S*L, S) uint8 ASCII with '-' for a gap, counts (S*L,)
+    int32, n_rows); rows from n_rows on are zero keys and all gaps."""
+    S = seqs.shape[0]
+    ukeys, variants4, counts, n_rows = _merged_impl(
+        (seqs >> 1) & 3, valid, qual_ok, rec_last, k, rc, W, is_reads,
+        use_mid_qual, min_count)
+    sets = torch.stack((variants4 >> 4, variants4 & 15), dim=-1)
+    ascii_of = torch.as_tensor(SET_TO_ASCII, device=seqs.device)
+    variants = ascii_of[sets.reshape(sets.shape[0], -1)[:, :S].long()]
+    return ukeys, variants, counts, n_rows
+
+
 def merged_build_from_packed(
     seq2, valid_bits, qual_bits, rec_ends,
     k: int, rc: bool, W: int, is_reads: bool, use_mid_qual: bool,
@@ -309,17 +326,29 @@ def batched_pipeline(seq, valid, qual_ok, rec_last, k: int, rc: bool, W: int,
     return sp, union, is_end, n_unique
 
 
+def batched_from_raw(
+    seqs, qual_bits, rec_ends,
+    k: int, rc: bool, W: int, is_reads: bool, use_mid_qual: bool,
+    min_count: int, strict_valid: bool, has_qual: bool,
+):
+    """batched_pipeline of an (S, L) batch fed by raw bytes (device_masks
+    first)."""
+    valid, qual_ok, rec_last = device_masks(seqs, qual_bits, rec_ends,
+                                            strict_valid, has_qual)
+    return batched_pipeline(seqs, valid, qual_ok, rec_last, k, rc, W,
+                            is_reads, use_mid_qual, min_count)
+
+
 def sample_from_raw(
     seq, qual_bits, rec_ends,
     k: int, rc: bool, W: int, is_reads: bool, use_mid_qual: bool,
     min_count: int, strict_valid: bool, has_qual: bool,
 ):
-    """batched_pipeline of one (L,) sample fed by raw bytes (device_masks
-    first); returns its outputs without the batch axis."""
-    valid, qual_ok, rec_last = device_masks(
-        seq[None], qual_bits[None], rec_ends[None], strict_valid, has_qual)
-    out = batched_pipeline(seq[None], valid, qual_ok, rec_last, k, rc, W,
-                          is_reads, use_mid_qual, min_count)
+    """batched_from_raw of one (L,) sample; returns its outputs without
+    the batch axis."""
+    out = batched_from_raw(seq[None], qual_bits[None], rec_ends[None], k, rc,
+                           W, is_reads, use_mid_qual, min_count, strict_valid,
+                           has_qual)
     return tuple(x[0] for x in out)
 
 

@@ -19,6 +19,7 @@ _LAZY = {
     "distributed_build": "build",
     "distributed_build_multi": "build",
     "distributed_merged_build": "build",
+    "dryrun_step": "build",
     "init_multihost": "multihost",
     "is_primary": "multihost",
     "postbuild": None,  # submodule itself

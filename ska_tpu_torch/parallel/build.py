@@ -219,3 +219,81 @@ def distributed_build(seqs_np, valid_np, rec_last_np, k, rc, device=None):
     qual = np.ones_like(np.asarray(valid_np), dtype=bool)
     return distributed_merged_build(seqs_np, valid_np, qual, rec_last_np, k,
                                     rc, device=device)
+
+
+def dryrun_step(n_devices=None, k: int = 17, L: int = 512,
+                per_dev_samples: int = 2, device=None):
+    """Small sharded build steps on every rank of the group (the JAX
+    package's dryrun_step, on the same inputs; graft_entry.py runs it).
+
+    Runs the sharded pipeline in four configurations: FASTA at k=17 with
+    a sample count that does NOT divide the world, FASTQ with the
+    min-count rank filter, W=2 keys (k=41), and a mixed-length cohort
+    (two length buckets through one key-range exchange); then the sharded
+    lookup and class Gram of the first array. n_devices, when given, must
+    be the world size. Returns the first build's row count.
+    """
+    from .postbuild import distributed_class_gram, distributed_lookup
+
+    D, _ = comm.world()
+    if n_devices is not None and n_devices != D:
+        raise ValueError(f"dryrun_step({n_devices}) in a group of {D} ranks")
+    n_samples = D * per_dev_samples - 1 if D > 1 else per_dev_samples
+    rng = np.random.default_rng(0)
+    seqs = rng.choice(np.frombuffer(b"ACGT", dtype=np.uint8), size=(n_samples, L))
+    valid = np.ones((n_samples, L), bool)
+    rec_last = np.zeros((n_samples, L), bool)
+    rec_last[:, -1] = True
+    keys, variants, _, n_rows = distributed_build(seqs, valid, rec_last, k,
+                                                  True, device)
+    _expect(n_rows > 0 and variants.shape == (n_rows, n_samples), "FASTA build")
+
+    # FASTQ + min-count: two identical reads per sample so every k-mer
+    # passes the min_count=2 rank filter
+    seqs2 = seqs.copy()
+    seqs2[:, L // 2 :] = seqs[:, : L - L // 2]
+    rl2 = np.zeros((n_samples, L), bool)
+    rl2[:, L // 2 - 1] = True
+    rl2[:, -1] = True
+    qual = np.ones((n_samples, L), bool)
+    *_, n2 = distributed_merged_build(seqs2, valid, qual, rl2, k, True,
+                                      is_reads=True, use_mid_qual=True,
+                                      min_count=2, device=device)
+    _expect(n2 > 0, "FASTQ build")
+
+    # W=2 two-limb keys
+    *_, n3 = distributed_build(seqs, valid, rec_last, 41, True, device)
+    _expect(n3 > 0, "W=2 build")
+
+    # mixed-length cohort: two buckets, one exchange
+    L2 = L // 2
+    rl_b = np.zeros((n_samples, L2), bool)
+    rl_b[:, -1] = True
+    calls = [
+        dict(seqs=seqs, valid=valid, qual=qual, rec_last=rec_last,
+             sids=np.arange(n_samples, dtype=np.int32),
+             is_reads=False, use_mq=False),
+        dict(seqs=seqs[:, :L2], valid=valid[:, :L2], qual=qual[:, :L2],
+             rec_last=rl_b,
+             sids=np.arange(n_samples, 2 * n_samples, dtype=np.int32),
+             is_reads=False, use_mq=False),
+    ]
+    _, var4, _, n4 = distributed_build_multi(calls, k, True, device=device)
+    _expect(n4 > 0 and var4.shape == (n4, 2 * n_samples), "mixed-length build")
+
+    # the sharded post-build modes: key-range lookup and site-sharded Gram
+    queries = np.concatenate([keys[::3], keys[:4] ^ np.uint64(0x5A5A)])
+    found, rows = distributed_lookup(keys, queries, device)
+    n_hits = len(keys[::3])
+    _expect(found[:n_hits].all()
+            and np.array_equal(keys[rows[:n_hits]], keys[::3]), "lookup")
+    G = distributed_class_gram(variants, device)
+    # every site contributes one class co-occurrence per (i, j) pair
+    _expect(int(G.sum()) == variants.shape[0] * variants.shape[1] ** 2,
+            "class Gram")
+    return n_rows
+
+
+def _expect(cond, what: str):
+    if not cond:
+        raise RuntimeError(f"dryrun_step: the {what} failed its check")

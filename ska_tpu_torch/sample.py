@@ -1,6 +1,8 @@
-"""Merged cohort build: the device half of
-ska_tpu/sample.py::build_samples_merged and build_samples_distributed,
-with the port's copies of their host helpers.
+"""Sample builds: the device half of ska_tpu/sample.py's merged cohort
+build (build_samples_merged, build_samples_distributed) and of its
+per-sample dictionaries (build_sample, build_samples, dict_from_batch:
+the in-memory API of webapi.py), with the port's copies of their host
+helpers.
 
 Host parsing, grouping by (padded length, reads, quality gates), the
 batch size (``_auto_max_batch``), power-of-two batch padding, the packed
@@ -32,7 +34,7 @@ from .ops import keys as K
 from .ops import pipeline as P
 from .ops.npkeys import np_lex_argsort, width_for_k
 from .progress import Bar
-from .sampletypes import QualOpts
+from .sampletypes import QualOpts, SampleDict
 from .torchinit import get_device
 
 
@@ -120,6 +122,82 @@ def prepare_sample(
         seqs.extend(ff.seqs)
         quals.extend(ff.quals)
     return fastx.build_batch(seqs, quals), is_reads
+
+
+def build_sample(name: str, k: int, files: Tuple[str, Optional[str]],
+                 rc: bool, qual: QualOpts, proportion_reads=None,
+                 device=None) -> SampleDict:
+    """Build one sample's dictionary from FASTA or paired FASTQ input."""
+    check_k(k)
+    dev = get_device(device)
+    batch, is_reads = prepare_sample(files, proportion_reads)
+    keys_np, sets_np = dict_from_batch(batch, k, rc, qual, is_reads, dev)
+    if len(keys_np) == 0:
+        raise ValueError(f"{files[0]} has no valid sequence")
+    return SampleDict(name=name, k=k, rc=rc, keys=keys_np, sets=sets_np)
+
+
+def build_samples(input_files, k: int, rc: bool, qual: QualOpts,
+                  proportion_reads=None, max_batch: int = 8,
+                  device=None) -> List[SampleDict]:
+    """Each sample's own dictionary, in input order. Samples are parsed
+    and grouped as the merged build's (_parse_and_group); each group runs
+    in batches of max_batch, one device pass each (batched_from_raw, row
+    by row), and a sample over SKA_MAX_CHUNK_BASES builds chunked."""
+    check_k(k)
+    dev = get_device(device)
+    prepared, groups, big, cap = _parse_and_group(input_files, k, qual,
+                                                  proportion_reads)
+    results: List[Optional[SampleDict]] = [None] * len(prepared)
+
+    def store(i, keys_sets):
+        keys_np, sets_np = keys_sets
+        if len(keys_np) == 0:
+            raise ValueError(f"{input_files[i][1]} has no valid sequence")
+        results[i] = SampleDict(name=input_files[i][0], k=k, rc=rc,
+                                keys=keys_np, sets=sets_np)
+
+    for i in big:
+        batch, is_reads = prepared[i]
+        store(i, dict_from_batch_chunked(batch, k, rc, qual, is_reads, cap, dev))
+    for (Lp, is_reads, _, _), idxs in groups.items():
+        for c0 in range(0, len(idxs), max_batch):
+            chunk = idxs[c0 : c0 + max_batch]
+            for i, keys_sets in zip(chunk, _run_batch(
+                    [prepared[i][0] for i in chunk], Lp, k, rc, qual,
+                    is_reads, dev)):
+                store(i, keys_sets)
+    return results
+
+
+def _run_batch(batches, Lp, k, rc, qual, is_reads, device):
+    """Each batch's (keys, sets) from one device pass over the group's
+    rows (batched_from_raw; the JAX package's branch to sample_from_raw
+    for one sample is the same computation here)."""
+    W = width_for_k(k)
+    staged = _stage_raw(batches, Lp, int(qual.min_qual))
+    use_mq, strict_valid = _gates(is_reads, staged[3], qual)
+    cfg = (k, rc, W, is_reads, use_mq, int(qual.min_count), strict_valid,
+           staged[3])
+    seqs, qual_bits, rec_ends = (torch.from_numpy(x).to(device)
+                                 for x in staged[:3])
+    sp, union, is_end, _ = P.batched_from_raw(seqs, qual_bits, rec_ends, *cfg)
+    sp_np = K.to_numpy_keys(sp)
+    union_np, end_np = union.cpu().numpy(), is_end.cpu().numpy()
+    return [P.unpack_host(sp_np[i], union_np[i], end_np[i], W)
+            for i in range(len(batches))]
+
+
+def dict_from_batch(batch: fastx.SeqBatch, k: int, rc: bool, qual: QualOpts,
+                    is_reads: bool, device=None):
+    """One sample's (keys, sets): one device pass, or the chunked build
+    when it is over SKA_MAX_CHUNK_BASES."""
+    dev = get_device(device)
+    cap = _max_chunk_bases()
+    if len(batch.seq) + k + 1 > cap:
+        return dict_from_batch_chunked(batch, k, rc, qual, is_reads, cap, dev)
+    return _run_batch([batch], _bucket(len(batch.seq) + k + 1), k, rc, qual,
+                      is_reads, dev)[0]
 
 
 def _auto_max_batch(Lp: int) -> int:

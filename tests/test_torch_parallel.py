@@ -20,7 +20,7 @@ sample count that does not divide the world, repeats and IUPAC, FASTQ
 min-count 1-3, the middle-quality gate, skewed keys (and one whose ranks
 are left with empty buckets), lookup at W=1 and W=2, the class Gram over
 one chunk and several, oversized samples, mixed lengths in one exchange,
-and `map`/`distance` end to end. Two `python -m ska_tpu_torch` processes
+`map`/`distance` end to end, and dryrun_step (graft_entry's dry run). Two `python -m ska_tpu_torch` processes
 joined by SKA_COORDINATOR run `build`, `map`, `distance` and `align` of
 FASTA files; rank 0 alone writes, byte for byte ./ska.py's pinned
 serial output.
@@ -355,6 +355,11 @@ def _run_scenarios(d, out):
         results[name] = _arr_result(tapi.assemble(batches, k, True))
         results[name]["n_batches"] = len(batches)
 
+    # dryrun_step through graft_entry, in place in the joined group
+    from ska_tpu_torch.graft_entry import dryrun_multichip
+
+    results["dryrun"] = dict(n_rows=dryrun_multichip(D, "cpu"))
+
     files, k, qual, _ = _files(d, "map")
     arr = tapi.build(files, k, True, QualOpts(**qual), device="cpu")
     ref = os.path.join(d, "ref.fa")
@@ -567,6 +572,17 @@ def test_map_and_distance_match_serial(worlds, world, monkeypatch):
     assert j_found.sum() > 0
     assert np.array_equal(got["found"], j_found)
     assert np.array_equal(got["rows"][j_found], j_rows[j_found])
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_dryrun_step_matches_jax_mesh(worlds, world):
+    """The port's dryrun_step (through graft_entry.dryrun_multichip in
+    the joined group) against the JAX package's on a mesh of `world`
+    virtual CPU devices: the same inputs, the same row count."""
+    from ska_tpu.parallel import dryrun_step
+
+    got = int(_result(worlds, world, "dryrun")["n_rows"])
+    assert got == dryrun_step(world) > 0
 
 
 @pytest.mark.parametrize("world", WORLDS)
