@@ -11,8 +11,9 @@ failure ends the run with a non-zero exit (nothing is caught, nothing
 moves to the CPU or to gloo):
 
 1. Build the port's native libraries from the sources in the checkout,
-   both at once: the radix sort kernel (nvcc) and the host library
-   (g++: the .skf codec, the batch union, the site filters).
+   all at once: the radix sort and lookup kernels (nvcc, one process
+   each) and the host library (g++: the .skf codec, the batch union, the
+   site filters).
 2. Hold each kernel against its plain PyTorch version on the card at the
    main path's shapes: the radix sort at N = 2^25 rows of (key limbs,
    int32 sample id, uint8 IUPAC set) for W=1 and W=2, on tie-heavy rows
@@ -30,20 +31,28 @@ moves to the CPU or to gloo):
    gives the same order and positions. Last, the (key, sample id) layout
    at W=1 once more at N = 2^27 rows with 2 sample ids, the shape of
    phase 5's global sort (2 samples x 2^26), every operand equal. Then
-   the kernel as `map`'s lookup (ops/keys.py searchsorted_via_sort):
-   2^21 queries (95% present, some shared by many rows, 64 all-ones) in
-   a sorted table of 2^23 unique 60-bit (W=1) or 124-bit (W=2) keys,
-   the sort of the 2^23 + 2^21 rows by the limbs alone equal on every
-   operand to the plain sort's, the lower bounds equal to the plain
-   binary search's (ops/keys.py searchsorted); at W=1 the library
-   yardstick is torch.searchsorted on the sign-biased limb.
+   the lookup kernel (csrc/lower_bound.cu, ops/keys.py lower_bound), map's
+   lookup: 2^21 queries (95% present, some shared by many rows, 64
+   all-ones) in a sorted table of 2^23 unique 60-bit (W=1) or 124-bit
+   (W=2) keys, and the edge cases (no keys, no queries, one key, runs of
+   equal keys, a mostly all-ones table, W=2 keys whose first limbs tie,
+   tables of as many keys as the kernel holds splitters, one more and a
+   quarter more), every lower bound equal to the plain binary search's
+   (ops/keys.py searchsorted); at W=1 torch.searchsorted on the
+   sign-biased limb too, the library yardstick. Timed in turns beside
+   the plain search, the yardstick and the route the kernel replaced
+   (the radix kernel's limbs-only sort of [queries; table], then a
+   cumsum and a scatter), each call alone after an L2 flush; the kernel
+   and the yardstick also back to back and as device time (profiler);
+   with the bound (each key and query read once, each answer written
+   once).
 3. The main path: `ska build` of a cohort of 21 related 2 Mb genomes
    (S. pneumoniae size; each a 1.95 Mb chromosome plus a 50 kb plasmid
    with ~0.5% SNPs, short indels, an N run and IUPAC letters, made from
    --seed) at k=31, then `ska align`, through the CLI entry point of
    `python -m ska_tpu_torch` with --device cuda; then k=63 on the first 4
-   genomes. Every kernel must have been launched during each run (launch
-   counters zeroed just before it). The .skf bytes must equal those of
+   genomes. The radix kernel must have been launched during each run
+   (launch counters zeroed just before it). The .skf bytes must equal those of
    the port's plain route, `python -m ska_tpu_torch build --device cpu`,
    on the same files; the CPU tests hold that route byte for byte to the
    JAX package. The alignment must have one row per genome, all of one
@@ -77,7 +86,7 @@ moves to the CPU or to gloo):
    (scanned on the card) from k31.skf, .skf bytes equal to the CPU
    route's; the aln once more with SKA_MAX_CHUNK_BASES = 1048448, so
    that the chromosome extracts in k-1-overlap slices, equal to the
-   unsliced bytes; the radix kernel launched in every card map; a warm
+   unsliced bytes; the lookup kernel launched in every card map; a warm
    k=31 VCF map under torch.profiler (spans and device).
 8. `ska distance` of k31.skf, plain, --min-freq 0.5 and
    --allow-ambiguous, TSV bytes equal to the CPU route's; then the class
@@ -93,13 +102,14 @@ moves to the CPU or to gloo):
    build_samples_distributed of phase 3's cohort at k=31 and k=63,
    keys, variants, counts and names equal to its .skf files;
    distributed_lookup of genome00.fa's split k-mers in k31.skf, equal to
-   the serial searchsorted_via_sort; distributed_class_gram of phase 8's
-   two inputs, equal to its int64 Grams; each call's wall time and radix
+   the plain binary search's; distributed_class_gram of phase 8's two
+   inputs, equal to its int64 Grams; each call's wall time and kernel
    launches; the k=31 and k=63 builds and the lookup once more under
-   torch.profiler, each with the radix kernels' device time beside their
-   bound (the operands of every sort it made read and written once).
-10. The host commands, through the CLI with --device cuda, each with the
-   radix kernel launched 0 times: `ska nk` (and --full-info) of k31.skf;
+   torch.profiler, with the radix kernels' (the builds) or the lookup
+   kernels' device time beside their bound (the operands of every call
+   read once and its outputs written once).
+10. The host commands, through the CLI with --device cuda, each with no
+   kernel launched: `ska nk` (and --full-info) of k31.skf;
    `ska delete` of genomes 04-20 (a -f list) and of 00-03 from k31.skf,
    then `ska merge` of the two halves, equal to k31.skf in keys,
    variants, counts and names; `ska lo` of the first 100,000 bases of
@@ -122,7 +132,9 @@ moves to the CPU or to gloo):
    --webapi-cpu, a process of its own, in a thread beside the card's
    calls); the 30x reads query must map at least 99% of the reference
    positions that genome03.fa maps; every map and align call must launch
-   the radix kernel. Then graft_entry.entry()'s step on the card, every
+   the radix kernel, and every map the lookup kernel; a warm k=31 FASTA
+   map once more under torch.profiler gives both kernels' device time
+   per call. Then graft_entry.entry()'s step on the card, every
    output equal to the same step on the CPU, and
    graft_entry.dryrun_multichip(torch.cuda.device_count()) on NCCL
    (rows > 0, the radix kernel launched on rank 0).
@@ -396,33 +408,135 @@ def lookup_case(W, seed):
     return table, queries
 
 
-def phase_lookup(torch, SO, TK, W, seed, dev):
-    """The radix kernel as map's lookup (ops/keys.py searchsorted_via_sort):
-    the sort of [queries; table] by the limbs alone, every operand
-    against the plain sort; the lower bounds against the plain binary
-    search (and at W=1 the library call); times and launches."""
+def lookup_edges(W, seed):
+    """The lookup's edge cases as (name, table, queries), numpy uint64
+    keys: no keys, no queries, one key, runs of equal keys, a table that
+    is mostly all-ones (a third of the queries all-ones), at W=2 runs of
+    tied first limbs, and tables of as many keys as the kernel holds
+    splitters, one more and a quarter more (one splitter a key, then
+    windows of one row and of two). Most queries lie just below, on or
+    just above a table key."""
+    import numpy as np
+
+    from ska_tpu_torch.ops.lookup import SPLITTER_BYTES
+
+    rng = np.random.default_rng(seed)
+    most = SPLITTER_BYTES // (8 * W)
+
+    def rand(n):
+        return rng.integers(0, ALL_ONES, size=(n, W), dtype=np.uint64,
+                            endpoint=True)
+
+    def srt(keys):
+        return keys[np.lexsort(keys.T[::-1])] if len(keys) else keys
+
+    def near(keys, m):
+        q = keys[rng.integers(0, len(keys), m)]
+        with np.errstate(over="ignore"):
+            q[:, -1] += rng.integers(-1, 2, m).astype(np.uint64)
+        return q
+
+    ones = np.full((1, W), ALL_ONES, np.uint64)
+    one = rand(1)
+    runs = srt(np.repeat(rand(300), rng.integers(1, 200, 300), axis=0))
+    mostly = srt(np.concatenate([rand(100), np.repeat(ones, 30000, axis=0)]))
+    q_mostly = near(mostly, 20000)
+    q_mostly[::3] = ALL_ONES
+    cases = [
+        ("no keys", rand(0), rand(1000)),
+        ("no queries", srt(rand(1000)), rand(0)),
+        ("one key", one, np.concatenate([near(one, 100), ones, 0 * ones])),
+        ("runs", runs, near(runs, 20000)),
+        ("mostly all-ones", mostly, q_mostly),
+    ]
+    if W == 2:
+        hi = rand(8)[:, 0]
+        hi[0] = ALL_ONES
+        ties = np.stack([rng.choice(hi, 50000), rand(50000)[:, 0]], -1)
+        ties[:2000, 1] = 0
+        ties[2000:4000, 1] = ALL_ONES
+        ties = srt(ties)
+        q_ties = near(ties, 20000)
+        q_ties[::7, 1] = rand(len(q_ties[::7]))[:, 0]
+        cases.append(("tied first limbs", ties, q_ties))
+    for n in (most, most + 1, most + most // 4):
+        t = srt(rand(n))
+        cases.append((f"{n} keys", t, np.concatenate([near(t, 5000),
+                                                      rand(1000)])))
+    return cases
+
+
+def old_lookup(torch, SO, table, queries):
+    """The route the lookup kernel replaced, rebuilt from
+    ops/sort.py: the radix kernel's limbs-only sort of [queries; table]
+    carrying int32 positions and a uint8 query flag (stable, so each
+    query sorts before the keys equal to it), a cumsum of the flags, and
+    one scatter of the lower bounds into query order."""
+    N, W = table.shape
+    M = queries.shape[0]
+    dev = queries.device
+    both = torch.cat([queries, table])
+    pos = torch.arange(M + N, dtype=torch.int32, device=dev)
+    ops = tuple(both[:, i].contiguous() for i in range(W)) + (
+        pos, (pos < M).to(torch.uint8))
+    got = SO._sort_cuda(ops, W)
+    spos, is_q = got[W], got[W + 1].bool()
+    table_before = torch.arange(M + N, device=dev) - (
+        torch.cumsum(is_q, dim=0) - 1)
+    out = torch.empty(M + 1, dtype=torch.int64, device=dev)
+    out[torch.where(is_q, spos.long(), M)] = table_before
+    return out[:M]
+
+
+def lookup_bound(W, N, M):
+    """Least time for one lookup: each key and query read once and each
+    int64 answer written once at the card's memory rate, against the
+    M * ceil(log2(N + 1)) comparisons of W words a search makes at the
+    card's non-tensor rate; the larger wins."""
+    t_bytes = (8 * W * (N + M) + 8 * M) / HBM_BYTES_PER_S
+    t_ops = M * max(1, N.bit_length()) * W / PEAK_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_lookup(torch, SO, LU, TK, W, seed, dev):
+    """The lookup kernel (ops/keys.py lower_bound, csrc/lower_bound.cu)
+    on the edge cases and at map's shape, every answer against the plain
+    binary search (at W=1 the library call too); times in turns beside
+    the route it replaced."""
+    err = 0
+    edges = lookup_edges(W, seed + 40 + W)
+    for name, t_np, q_np in edges:
+        t = TK.from_numpy_keys(t_np, dev)
+        q = TK.from_numpy_keys(q_np, dev)
+        got, want = TK.lower_bound(t, q), TK.searchsorted(t, q)
+        check(got.shape == want.shape, f"lookup W={W} [{name}]: shape")
+        e = int((got - want).abs().max()) if len(q_np) else 0
+        check(e == 0, f"lookup W={W} [{name}]: the kernel's lower bounds "
+              f"differ from the plain binary search's by up to {e}")
+        err = max(err, e)
+    log(f"phase 2: lookup kernel W={W}: {len(edges)} edge cases "
+        f"({', '.join(n for n, *_ in edges)}) equal to the plain binary "
+        f"search")
+
     table_np, q_np = lookup_case(W, seed + 30 + W)
     N, M = len(table_np), len(q_np)
     table = TK.from_numpy_keys(table_np, dev)
     queries = TK.from_numpy_keys(q_np, dev)
-    ops = TK.lookup_operands(table, queries)
-    before = SO.radix_launches
-    got = SO._sort_cuda(ops, W)
-    launches = SO.radix_launches - before
-    want = SO._sort_plain(ops, W)
-    torch.cuda.synchronize()
-    err = 0
-    for g, w in zip(got, want):
-        err = max(err, int((g != w).sum()))
-    check(err == 0, f"lookup sort W={W}: {err} rows differ from the plain sort")
-    before = SO.radix_launches
-    lb = TK.searchsorted_via_sort(table, queries)
-    per_lookup = SO.radix_launches - before
-    check(bool((lb == TK.searchsorted(table, queries)).all()),
-          f"lookup W={W}: lower bounds differ from the plain binary search")
+    before = LU.lower_bound_launches
+    lb = TK.lower_bound(table, queries)
+    per_lookup = LU.lower_bound_launches - before
+    want = TK.searchsorted(table, queries)
+    e = int((lb - want).abs().max())
+    check(e == 0, f"lookup W={W}: the kernel's lower bounds differ from the "
+          f"plain binary search's by up to {e}")
+    err = max(err, e)
+    check(per_lookup == 2, f"lookup W={W}: {per_lookup} launches per lookup, "
+          "expected 2 (splitters, search)")
     ones = (queries == -1).all(dim=1)
     check(bool((lb[ones] == N - 1).all()), "all-ones queries find the last key")
     hits = float(TK.equal(table[lb.clamp(0, N - 1)], queries).float().mean())
+    check(bool((old_lookup(torch, SO, table, queries) == lb).all()),
+          f"lookup W={W}: the old sort route differs from the kernel")
 
     biased = (table[:, 0] ^ TK.SIGN, queries[:, 0] ^ TK.SIGN)
 
@@ -432,18 +546,38 @@ def phase_lookup(torch, SO, TK, W, seed, dev):
     lib_ms = None
     if W == 1:
         check(bool((library() == lb).all()), "torch.searchsorted differs")
-    kern, plain, full, bsearch, lib = [], [], [], [], []
+    # in turns on one card (plain, kernel, library, old route, plain),
+    # each call timed alone after the 50 MB L2 is flushed, as map's one
+    # lookup of a table finds it
+    flush = torch.empty(1 << 27, dtype=torch.uint8, device=dev)
+
+    def cold_ms(fn, reps):
+        out = []
+        for _ in range(reps):
+            flush.zero_()
+            out += time_ms(torch, fn, 1)
+        return out
+
+    kern, plain, lib, old = [], [], [], []
     for _ in range(3):
-        plain += time_ms(torch, lambda: SO._sort_plain(ops, W), 1)
-        kern += time_ms(torch, lambda: SO._sort_cuda(ops, W), 2)
-        full += time_ms(torch, lambda: TK.searchsorted_via_sort(table, queries), 1)
-        bsearch += time_ms(torch, lambda: TK.searchsorted(table, queries), 1)
+        plain += cold_ms(lambda: TK.searchsorted(table, queries), 1)
+        kern += cold_ms(lambda: TK.lower_bound(table, queries), 2)
         if W == 1:
-            lib += time_ms(torch, library, 2)
-        plain += time_ms(torch, lambda: SO._sort_plain(ops, W), 1)
+            lib += cold_ms(library, 2)
+        old += cold_ms(lambda: old_lookup(torch, SO, table, queries), 2)
+        plain += cold_ms(lambda: TK.searchsorted(table, queries), 1)
+    del flush
     if lib:
         lib_ms = statistics.median(lib)
-    bound, bound_by = sort_bound(W, N + M, keys=W)
+
+    def back_to_back(fn, calls=20):
+        """Per-call ms of `calls` calls between two events, warm: the
+        card's time with the host's launch gaps hidden behind it."""
+        return statistics.median(time_ms(
+            torch, lambda: [fn() for _ in range(calls)], 3)) / calls
+
+    bound, bound_by = lookup_bound(W, N, M)
+    split = kernel_split(torch, lambda: TK.lower_bound(table, queries))
     res = {
         "max_abs_err": float(err),
         "ms": statistics.median(kern),
@@ -451,40 +585,70 @@ def phase_lookup(torch, SO, TK, W, seed, dev):
         "library_ms": lib_ms,
         "bound_ms": bound,
         "bound_by": bound_by,
-        "launches_per_sort": launches,
         "launches_per_lookup": per_lookup,
-        "lookup_ms": statistics.median(full),
-        "bsearch_ms": statistics.median(bsearch),
+        "old_route_ms": statistics.median(old),
+        "device_ms": device_ms(split),
+        "back_to_back_ms": back_to_back(lambda: TK.lower_bound(table, queries)),
+        "library_device_ms": None,
+        "library_back_to_back_ms": None,
     }
+    if W == 1:
+        res["library_device_ms"] = device_ms(kernel_split(torch, library))
+        res["library_back_to_back_ms"] = back_to_back(library)
     lib_txt = "" if lib_ms is None else (
         f"; library torch.searchsorted on the sign-biased limb {lib_ms:.3f} ms "
-        f"(runs {[round(x, 3) for x in lib]})")
+        f"(runs {[round(x, 3) for x in lib]}), device "
+        f"{ms_text(res['library_device_ms'])}, back to back "
+        f"{res['library_back_to_back_ms']:.3f} ms a call")
     log(f"phase 2: map's lookup W={W}, {M} queries in {N} keys ({100 * hits:.2f}% "
-        f"found): radix sort of the {N + M} rows {res['ms']:.3f} ms, plain sort "
+        f"found), each call alone after an L2 flush: lookup kernel "
+        f"{res['ms']:.3f} ms, plain binary search "
         f"{res['plain_ms']:.3f} ms, bound {bound:.3f} ms by {bound_by} "
-        f"({100 * bound / res['ms']:.2f}% of the bound), {launches} launches "
-        f"per sort, {per_lookup} per lookup; the whole lookup "
-        f"(searchsorted_via_sort) {res['lookup_ms']:.3f} ms, the plain binary "
-        f"search {res['bsearch_ms']:.3f} ms{lib_txt} (kernel runs "
-        f"{[round(x, 3) for x in kern]}, plain runs {[round(x, 3) for x in plain]}"
-        f"); every operand equal to the plain sort's, lower bounds equal to "
-        f"the binary search's")
-    del ops, got, want, table, queries, biased
+        f"({100 * bound / res['ms']:.2f}% of the bound), device "
+        f"{ms_text(res['device_ms'])}, back to back {res['back_to_back_ms']:.3f} "
+        f"ms a call, {per_lookup} launches "
+        f"per lookup; the old route (radix sort of the {N + M} rows, cumsum, "
+        f"scatter) {res['old_route_ms']:.3f} ms{lib_txt} (kernel runs "
+        f"{[round(x, 3) for x in kern]}, plain runs "
+        f"{[round(x, 3) for x in plain]}, old route runs "
+        f"{[round(x, 3) for x in old]}); lower bounds equal to the plain "
+        f"binary search's, the old route's"
+        + (" and the library's" if W == 1 else ""))
+    for name, (n, ms) in split.items():
+        log(f"phase 2:   W={W} device {ms:.3f} ms in {n} launches "
+            f"({ms / n:.3f} ms each): {name}")
+    del table, queries, biased, lb, want
     torch.cuda.empty_cache()
     return res
 
 
-def kernel_split(torch, fn):
+def kernel_split(torch, fn, tries=3):
     """Device time of each kernel of one call of fn, by torch.profiler:
-    {kernel name: (launches, ms)}."""
+    {kernel name: (launches, ms)}. A profile that saw no device activity
+    (one H100 run had two such in a row) is taken again, up to `tries`
+    times; {} if none saw any."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(tries):
         torch.cuda.synchronize()
-    return {e.key[:60]: (e.count, e.device_time_total / 1e3)
-            for e in prof.key_averages() if e.device_time_total > 0}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        split = {e.key[:60]: (e.count, e.device_time_total / 1e3)
+                 for e in prof.key_averages() if e.device_time_total > 0}
+        if split:
+            return split
+    return {}
+
+
+def device_ms(split):
+    """The device ms of a kernel_split, None where the profiler saw
+    nothing."""
+    return sum(ms for _, ms in split.values()) if split else None
+
+
+def ms_text(ms):
+    return "not measured" if ms is None else f"{ms:.3f} ms"
 
 
 # ---------------------------------------------------------------- phase 3
@@ -549,8 +713,8 @@ def phase_main(torch, cli, torchinit, cohort, k, tag):
     t_align = time.perf_counter() - t0
     launches = torchinit.launch_counts()
     log(f"phase 3 [{tag}]: CUDA launches during build+align: {launches}")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    check(launches["radix_sort"] > 0,
+          "the radix kernel was not launched on the main path")
     check_alignment(out + ".aln", len(paths), tag)
 
     # reference: the port's plain route on the CPU, in its own process
@@ -773,8 +937,8 @@ def phase_reads(torch, cli, torchinit, cohort, seed):
     t_align = time.perf_counter() - t0
     launches = torchinit.launch_counts()
     log(f"phase 5: CUDA launches during build+align: {launches}")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the reads path")
+    check(launches["radix_sort"] > 0,
+          "the radix kernel was not launched on the reads path")
     check_alignment(out + ".aln", len(samples), "reads31")
 
     fa = skf.load(os.path.join(WORK, "k31.skf"))
@@ -895,8 +1059,8 @@ def phase_exact(torch, cli, torchinit, cohort, seed):
     card, cpu = card_and_cpu(torch, cli, torchinit, runs)
     for tag, args, _ in runs:
         stdout, t_card, launches = card[tag]
-        for name, n in launches.items():
-            check(n > 0, f"{tag}: kernel {name} was not launched")
+        check(launches["radix_sort"] > 0,
+              f"{tag}: the radix kernel was not launched")
         check(stdout == cpu[tag][0], f"{tag}: stdout differs from the CPU route's")
         what = "stdout"
         if args[0] == "build":
@@ -921,7 +1085,8 @@ def phase_map(torch, cli, torchinit, cohort):
     """`ska map` of phase 3's .skf files to genome00.fa (a chromosome and
     a plasmid) on the card, byte for byte against the plain CPU route;
     the aln once more with the chromosome in k-1-overlap slices; then a
-    warm k=31 VCF map under torch.profiler."""
+    warm k=31 VCF map under torch.profiler. Returns the lookup kernel's
+    launches in the card's maps."""
     from ska_tpu_torch import ref as R
     from ska_tpu_torch.io import skf
 
@@ -942,8 +1107,9 @@ def phase_map(torch, cli, torchinit, cohort):
     for tag, args, _ in runs:
         _, t_card, counts = card[tag]
         fmt = args[4]
-        check(counts["radix_sort"] > 0, f"{tag}: the lookup launched no sort")
-        launches += counts["radix_sort"]
+        check(counts["lower_bound"] > 0, f"{tag}: the lookup kernel was not "
+              "launched")
+        launches += counts["lower_bound"]
         same, size = same_bytes(os.path.join(d, f"{tag}_{DEVICE}.{fmt}"),
                                 os.path.join(d, f"{tag}_cpu.{fmt}"))
         check(same, f"{tag}: {fmt} bytes differ from the plain CPU route's")
@@ -963,8 +1129,9 @@ def phase_map(torch, cli, torchinit, cohort):
     _, t_card, counts = card_run(
         torch, cli, torchinit, [a.format(dev=DEVICE) for a in args],
         {"SKA_MAX_CHUNK_BASES": str(MAP_SLICE_CAP)})
-    check(counts["radix_sort"] > 0, f"{tag}: the lookup launched no sort")
-    launches += counts["radix_sort"]
+    check(counts["lower_bound"] > 0, f"{tag}: the lookup kernel was not "
+          "launched")
+    launches += counts["lower_bound"]
     same, size = same_bytes(os.path.join(d, f"k31_sliced_{DEVICE}.aln"),
                             os.path.join(d, f"k31_aln_{DEVICE}.aln"))
     check(same, "the sliced reference scan changed the alignment")
@@ -1197,7 +1364,7 @@ def dist_calls(torch, torchinit, grams, on_result,
     genomes at k=63, the lookup of genome00.fa's split k-mers in k31.skf,
     each once more inside the context manager profiled(tag), and the
     class Gram of phase 8's two inputs. on_result(tag, result, wall s,
-    radix launches) sees each."""
+    {kernel: launches}) sees each."""
     from ska_tpu_torch import api
     from ska_tpu_torch.constants import DEFAULT_MINCOUNT, DEFAULT_MINQUAL, QUAL_STRICT
     from ska_tpu_torch.io import fastx, skf
@@ -1219,7 +1386,7 @@ def dist_calls(torch, torchinit, grams, on_result,
             out = fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        on_result(tag, out, wall, torchinit.launch_counts()["radix_sort"])
+        on_result(tag, out, wall, torchinit.launch_counts())
 
     def build(k, n):
         files = fastx.get_input_list(None, paths[:n])
@@ -1245,8 +1412,10 @@ def phase_dist(torch, torchinit, grams):
     """The sharded paths (parallel/) on an NCCL group of one rank per
     card, driven through their functions directly (use_distributed()
     stays false at one rank, as in the JAX package): every array equal to
-    phase 3's .skf files, the serial lookup and phase 8's serial Grams.
-    Returns the radix launches of the builds and the lookup."""
+    phase 3's .skf files, the plain lookup and phase 8's serial Grams.
+    Returns the radix launches of the builds, the lookup kernel's
+    launches in the lookup, and each profiled call's kernel time and
+    bound ({tag: {"ms", "bound_ms"}})."""
     import socket
 
     import numpy as np
@@ -1254,6 +1423,8 @@ def phase_dist(torch, torchinit, grams):
 
     from ska_tpu_torch.io import skf
     from ska_tpu_torch.ops import keys as TK
+    from ska_tpu_torch.ops import lookup as LU
+    from ska_tpu_torch.ops import sort as SO
     from ska_tpu_torch.ref import RefSka
 
     world = torch.cuda.device_count()
@@ -1283,9 +1454,10 @@ def phase_dist(torch, torchinit, grams):
         def profiled(tag):
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof, \
-                    SortBytes() as sorts:
+                    CallBytes(SO, "_sort_cuda") as sorts, \
+                    CallBytes(LU, "lower_bound") as lookups:
                 yield
-            profs[tag] = (prof, sorts)
+            profs[tag] = (prof, lookups if "lookup" in tag else sorts)
 
         dist_calls(torch, torchinit, grams,
                    lambda tag, *res: results.__setitem__(tag, res), profiled)
@@ -1311,10 +1483,11 @@ def phase_dist(torch, torchinit, grams):
               and np.array_equal(arr.variants, want.variants)
               and np.array_equal(arr.counts, want.counts.astype(np.int64)),
               f"phase 9 {tag}: the sharded build differs from k{k}.skf")
-        check(launches > 0, f"phase 9 {tag}: the radix kernel was not launched")
+        check(launches["radix_sort"] > 0,
+              f"phase 9 {tag}: the radix kernel was not launched")
         log(f"phase 9 [{tag}]: {arr.ksize} rows x {arr.nsamples} samples, "
             f"keys, variants, counts and names equal to k{k}.skf; "
-            f"{wall:.3f} s wall, {launches} radix launches")
+            f"{wall:.3f} s wall, launches {launches}")
 
     (found, rows), wall, launches = results["lookup"]
     check(all(np.array_equal(a, b) for a, b in zip(
@@ -1326,15 +1499,16 @@ def phase_dist(torch, torchinit, grams):
                    device=DEVICE).kmers
     table = TK.from_numpy_keys(sorted_keys, DEVICE)
     q = TK.from_numpy_keys(kmers, DEVICE)
-    idx = TK.searchsorted_via_sort(table, q).clamp(0, len(sorted_keys) - 1)
+    idx = TK.searchsorted(table, q).clamp(0, len(sorted_keys) - 1)
     s_found = TK.equal(table[idx], q).cpu().numpy()
     s_rows = np.where(s_found, idx.cpu().numpy(), -1)
     check(np.array_equal(found, s_found) and np.array_equal(rows, s_rows),
-          "phase 9 lookup: rows differ from the serial searchsorted_via_sort")
-    check(launches > 0, "phase 9 lookup: the radix kernel was not launched")
+          "phase 9 lookup: rows differ from the plain binary search's")
+    check(launches["lower_bound"] > 0,
+          "phase 9 lookup: the lookup kernel was not launched")
     log(f"phase 9 [lookup]: {len(kmers)} queries in {len(sorted_keys)} keys, "
-        f"{int(found.sum())} found, rows equal to the serial lookup's; "
-        f"{wall:.3f} s wall, {launches} radix launches")
+        f"{int(found.sum())} found, rows equal to the plain binary search's; "
+        f"{wall:.3f} s wall, launches {launches}")
 
     for tag, (v, G) in grams.items():
         got, wall, launches = results[f"gram {tag}"]
@@ -1342,57 +1516,71 @@ def phase_dist(torch, torchinit, grams):
               f"phase 9 gram {tag}: differs from phase 8's class_gram")
         log(f"phase 9 [gram {tag}]: {v.shape[0]} sites x {v.shape[1]} samples, "
             f"int64 Gram equal to phase 8's class_gram; {wall:.3f} s wall, "
-            f"{launches} radix launches")
+            f"launches {launches}")
 
-    radix = {}
-    for tag in ("k31", "k63", "lookup"):
-        prof, sorts = profs[f"profile {tag}"]
+    device = {}
+    for tag, what, names in (
+            ("k31", "radix", ("histogram_kernel", "scatter_kernel")),
+            ("k63", "radix", ("histogram_kernel", "scatter_kernel")),
+            ("lookup", "lookup", ("splitter_kernel", "search_kernel"))):
+        prof, calls = profs[f"profile {tag}"]
         spans, kernels = profile_events(prof)
         ms = sum(t for name, (_, t) in kernels.items()
-                 if "histogram_kernel" in name or "scatter_kernel" in name) / 1e3
-        bound = 2 * sum(b for _, b in sorts.sorts) / HBM_BYTES_PER_S * 1e3
+                 if any(n in name for n in names)) / 1e3
+        bound = sum(b for _, b in calls.calls) / HBM_BYTES_PER_S * 1e3
         shapes = {}
-        for shape, _ in sorts.sorts:
+        for shape, _ in calls.calls:
             shapes[shape] = shapes.get(shape, 0) + 1
-        radix[tag] = {"ms": ms, "bound_ms": bound}
-        log(f"phase 9 [radix, {tag}]: {len(sorts.sorts)} sorts "
+        device[tag] = {"ms": ms, "bound_ms": bound}
+        log(f"phase 9 [{what}, {tag}]: {len(calls.calls)} calls "
             f"({', '.join(f'{n} x {s}' for s, n in shapes.items())}): "
             f"kernels {ms:.3f} ms on the card (profiler), bound {bound:.3f} "
-            f"ms (each operand read and written once at 3.35 TB/s)")
+            f"ms (each input read and each output written once at 3.35 TB/s)")
     wall = results["profile k31"][1]
     spans, kernels = profile_events(profs["profile k31"][0])
     log(f"phase 9: the k=31 sharded build under torch.profiler: {wall:.3f} s "
         f"wall (unprofiled: {results['build k31'][1]:.3f} s)")
     log_profile("phase 9", "the sharded k=31 build", wall, spans, kernels)
-    return (sum(results[t][2] for t in ("build k31", "build k63", "lookup")),
-            radix)
+    return (sum(results[t][2]["radix_sort"] for t in ("build k31", "build k63")),
+            results["lookup"][2]["lower_bound"], device)
 
 
-class SortBytes:
-    """Records each radix sort (ops/sort.py _sort_cuda) made while
-    installed: (operand shape and dtypes, bytes of all its operands)."""
+class CallBytes:
+    """Records each call of the kernel wrapper mod.name made while
+    installed (ops/sort.py _sort_cuda, ops/lookup.py lower_bound): (its
+    tensor arguments' shapes and dtypes, the bytes of its tensor
+    arguments and of what it returns)."""
 
-    def __init__(self):
-        from ska_tpu_torch.ops import sort
-
-        self.mod, self.sorts = sort, []
+    def __init__(self, mod, name):
+        self.mod, self.name, self.calls = mod, name, []
 
     def __enter__(self):
-        real = self.real = self.mod._sort_cuda
+        import torch
 
-        def spy(ops, num_keys):
-            ops = tuple(ops)
-            shape = "x".join(map(str, ops[0].shape)) + " " + "+".join(
-                str(o.dtype).split(".")[-1] for o in ops)
-            self.sorts.append((shape, sum(o.numel() * o.element_size()
-                                          for o in ops)))
-            return real(ops, num_keys)
+        real = self.real = getattr(self.mod, self.name)
 
-        self.mod._sort_cuda = spy
+        def tensors(x):
+            if isinstance(x, torch.Tensor):
+                return [x]
+            if isinstance(x, (tuple, list)):
+                return [t for y in x for t in tensors(y)]
+            return []
+
+        def spy(*args):
+            out = real(*args)
+            ins = tensors(args)
+            shape = ", ".join(
+                "x".join(map(str, t.shape)) + " " + str(t.dtype).split(".")[-1]
+                for t in ins)
+            self.calls.append((shape, sum(t.numel() * t.element_size()
+                                          for t in ins + tensors(out))))
+            return out
+
+        setattr(self.mod, self.name, spy)
         return self
 
     def __exit__(self, *exc):
-        self.mod._sort_cuda = self.real
+        setattr(self.mod, self.name, self.real)
 
 
 def dist_only(torch, cli, torchinit, seed, smi):
@@ -1409,9 +1597,9 @@ def dist_only(torch, cli, torchinit, seed, smi):
     grams = {tag: (v, D.class_gram(v, DEVICE))
              for tag, v in gram_inputs(torch, seed).items()}
     t0 = time.perf_counter()
-    launches, _ = phase_dist(torch, torchinit, grams)
-    log(f"phase 9: {time.perf_counter() - t0:.1f} s in all, {launches} radix "
-        f"launches in the builds and the lookup")
+    radix, lookups, _ = phase_dist(torch, torchinit, grams)
+    log(f"phase 9: {time.perf_counter() - t0:.1f} s in all, {radix} radix "
+        f"launches in the builds, {lookups} lookup launches in the lookup")
     from ska_tpu_torch import graft_entry
 
     dryrun(torch, graft_entry, torch.cuda.device_count())
@@ -1493,7 +1681,7 @@ def host_cpu():
 def host_run(cli, torchinit, argv, stdout_path=None):
     """One CLI run of a host command with --device cuda, launch counters
     zeroed just before it; stdout goes to stdout_path (or is dropped).
-    Returns the wall time; the radix kernel must not have been launched."""
+    Returns the wall time; no kernel may have been launched."""
     torchinit.reset_launch_counts()
     t0 = time.perf_counter()
     with open(stdout_path or os.devnull, "w") as out, \
@@ -1518,7 +1706,7 @@ def count_lines(path):
 def phase_host_cmds(cli, torchinit, cohort):
     """`ska nk`, `delete`, `merge` and `lo` through cli.main with --device
     cuda. They are host code (the JAX package sends no part of them to
-    its accelerator): the radix kernel must be launched 0 times in each.
+    its accelerator): no kernel may be launched in any of them.
 
     nk, delete and merge run at full width on phase 3's k31.skf (21
     genomes): nk's header and --full-info's one line per k-mer; delete
@@ -1698,7 +1886,7 @@ def run_webapi(device, torch=None, torchinit=None):
     (torchinit given) also makes the card-only calls, and zeroes the
     launch counters just before each call (and each constructor) and
     reads them just after. Returns {"object / call": (output, wall s,
-    radix launches)}, the output None for a constructor."""
+    {kernel: launches})}, the output None for a constructor."""
     from ska_tpu_torch import webapi
 
     out = {}
@@ -1712,7 +1900,7 @@ def run_webapi(device, torch=None, torchinit=None):
         if torchinit:
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        n = torchinit.launch_counts()["radix_sort"] if torchinit else 0
+        n = torchinit.launch_counts() if torchinit else {}
         out[tag] = (res if isinstance(res, str) else None, wall, n)
         return res
 
@@ -1748,7 +1936,9 @@ def mapped_share(fasta_json, reads_json):
 def phase_webapi(torch, torchinit, cohort):
     """The in-memory API (webapi.py) and graft_entry on the card; the
     FASTA and cut-reads calls against the plain CPU route, string for
-    string. Returns the radix launches of the card's calls."""
+    string; one warm FASTA map under torch.profiler. Returns the card's
+    calls' {kernel: launches} and the profiled map's {kernel: device
+    ms}."""
     import numpy as np
 
     from ska_tpu_torch import graft_entry
@@ -1778,19 +1968,23 @@ def phase_webapi(torch, torchinit, cohort):
         t_card = time.perf_counter() - t0
         cpu, t_cpu = cpu_future.result()
 
-    launches = 0
+    launches = {"radix_sort": 0, "lower_bound": 0}
     for tag, (res, wall, n) in card.items():
         is_call = "/" in tag and not tag.endswith("get_reference")
         if is_call:
-            check(n > 0, f"phase 11 [{tag}]: the radix kernel was not launched")
-            launches += n
+            check(n["radix_sort"] > 0,
+                  f"phase 11 [{tag}]: the radix kernel was not launched")
+            check(n["lower_bound"] > 0 or "/ map" not in tag,
+                  f"phase 11 [{tag}]: the lookup kernel was not launched")
+            for name in launches:
+                launches[name] += n[name]
         same = ""
         if tag in cpu and res is not None:
             check(res == cpu[tag][0],
                   f"phase 11 [{tag}]: differs from the plain CPU route's")
             same = (f", {len(res)} characters equal to the plain CPU "
                     f"route's ({cpu[tag][1]:.3f} s there)")
-        log(f"phase 11 [{tag}]: {wall:.3f} s wall, {n} radix launches{same}")
+        log(f"phase 11 [{tag}]: {wall:.3f} s wall, launches {n}{same}")
 
     share, n_pos = mapped_share(card["SkaData k31 / map genome03"][0],
                                 card["SkaData k31 / map genome03 30x"][0])
@@ -1812,6 +2006,27 @@ def phase_webapi(torch, torchinit, cohort):
         f"tree of {len(doc['newick'])} characters, alignment of "
         f"{len(doc['alignment'])}")
 
+    # the kernels' device time in one warm k=31 FASTA map
+    from ska_tpu_torch import webapi
+
+    ska = webapi.SkaData(os.path.join(WORK, "genome00.fa"), 31, device=DEVICE)
+    query = os.path.join(WORK, "genome01.fa")
+    warm = ska.map(query)
+    mapped = {}
+    wall, _, kernels = profile_call(
+        torch, lambda: mapped.__setitem__("json", ska.map(query)))
+    check(mapped["json"] == warm == card["SkaData k31 / map genome01"][0],
+          "phase 11: the profiled map gave another JSON string")
+    map_ms = {
+        kernel: sum(t for name, (_, t) in kernels.items()
+                    if any(n in name for n in names)) / 1e3
+        for kernel, names in (
+            ("radix_sort", ("histogram_kernel", "scatter_kernel")),
+            ("lower_bound", ("splitter_kernel", "search_kernel")))}
+    log(f"phase 11 [SkaData k31 / map genome01, profiled]: {wall:.3f} s wall; "
+        f"device time {', '.join(f'{k} {v:.3f} ms' for k, v in map_ms.items())}")
+    log_profile("phase 11", "the map", wall, {}, kernels, top=5)
+
     # graft_entry: the flagship step on the card and on the CPU
     fn, args = graft_entry.entry()
     torchinit.reset_launch_counts()
@@ -1824,12 +2039,12 @@ def phase_webapi(torch, torchinit, cohort):
     check(n > 0, "phase 11 [entry]: the radix kernel was not launched")
     check(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)),
           "phase 11 [entry]: the card's outputs differ from the CPU's")
-    launches += n
+    launches["radix_sort"] += n
     log(f"phase 11 [entry]: merged_build_pipeline of {tuple(args[0].shape)} "
         f"bases, {int(got[3])} rows, every output equal to the CPU's; "
         f"{wall:.3f} s wall (first call), {n} radix launches")
     dryrun(torch, graft_entry, torch.cuda.device_count())
-    return launches
+    return launches, map_ms
 
 
 def dryrun(torch, graft_entry, world):
@@ -1881,6 +2096,7 @@ def main():
         return webapi_cpu(args.webapi_cpu)
     from ska_tpu_torch import cli, kernels, torchinit
     from ska_tpu_torch.ops import keys as TK
+    from ska_tpu_torch.ops import lookup as LU
     from ska_tpu_torch.ops import sort as SO
 
     dev = torch.device("cuda")
@@ -1891,10 +2107,11 @@ def main():
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} ({smi})")
 
-    # phase 1: both native libraries, built at once
+    # phase 1: the native libraries, built at once (one compiler each)
     t0 = time.perf_counter()
-    with cf.ThreadPoolExecutor(2) as pool:
+    with cf.ThreadPoolExecutor(3) as pool:
         builds = [pool.submit(kernels.build, "radix_sort"),
+                  pool.submit(kernels.build, "lower_bound"),
                   pool.submit(kernels.build_host)]
         libs = [f.result() for f in builds]
     log(f"phase 1: built {libs} in {time.perf_counter() - t0:.1f} s")
@@ -1913,7 +2130,7 @@ def main():
     reads_res = phase_sort(torch, SO, 1, args.seed + 20, dev,
                            READS_SORT_LOG2, 2)
     # map's lookup: 2^21 reference split k-mers in 2^23 keys
-    lookup_res = {W: phase_lookup(torch, SO, TK, W, args.seed, dev)
+    lookup_res = {W: phase_lookup(torch, SO, LU, TK, W, args.seed, dev)
                   for W in (1, 2)}
 
     # phase 3: the main path
@@ -1945,7 +2162,7 @@ def main():
 
     # phase 9: the sharded paths on an NCCL group, one rank per card
     t0 = time.perf_counter()
-    launches_dist, radix_dist = phase_dist(torch, torchinit, grams)
+    radix_dist, lookups_dist, device_dist = phase_dist(torch, torchinit, grams)
     log(f"phase 9: {time.perf_counter() - t0:.1f} s in all")
 
     # phase 10: nk, delete, merge and lo, host code launching no kernel
@@ -1955,22 +2172,22 @@ def main():
 
     # phase 11: the front ends (webapi, graft_entry)
     t0 = time.perf_counter()
-    launches_webapi = phase_webapi(torch, torchinit, cohort)
+    launches_webapi, webapi_ms = phase_webapi(torch, torchinit, cohort)
     log(f"phase 11: {time.perf_counter() - t0:.1f} s in all")
     check("jax" not in sys.modules, "jax was imported")
 
     w1, w2 = sort_res[1], sort_res[2]
+    l1, l2 = lookup_res[1], lookup_res[2]
     kernels_line = {"kernels": [{
         "name": "radix_sort",
         "route": "cuda",
         "source": "ska_tpu_torch/csrc/radix_sort.cu",
         "replaces": "ska_tpu/ops/sort.py:178",
         "launches": (launches31["radix_sort"] + launches63["radix_sort"]
-                     + launches_reads["radix_sort"] + launches_map
-                     + launches_dist + launches_webapi),
+                     + launches_reads["radix_sort"] + radix_dist
+                     + launches_webapi["radix_sort"]),
         "max_abs_err": max(r["max_abs_err"] for r in (
-            *sort_res.values(), *limbs_res.values(), reads_res,
-            *lookup_res.values())),
+            *sort_res.values(), *limbs_res.values(), reads_res)),
         "ms": w1["ms"],
         "plain_ms": w1["plain_ms"],
         "bound_ms": w1["bound_ms"],
@@ -1996,20 +2213,44 @@ def main():
         "reads_global_plain_ms": reads_res["plain_ms"],
         "reads_global_bound_ms": reads_res["bound_ms"],
         "reads_global_launches_per_sort": reads_res["launches_per_sort"],
+        "launches_dist": radix_dist,
+        "dist_ms": {t: device_dist[t]["ms"] for t in ("k31", "k63")},
+        "dist_bound_ms": {t: device_dist[t]["bound_ms"] for t in ("k31", "k63")},
+        "launches_webapi": launches_webapi["radix_sort"],
+        "webapi_map_ms": webapi_ms["radix_sort"],
+    }, {
+        "name": "lower_bound",
+        "route": "cuda",
+        "source": "ska_tpu_torch/csrc/lower_bound.cu",
+        "replaces": "ska_tpu/ops/keys.py:195",
+        "launches": (launches_map + lookups_dist
+                     + launches_webapi["lower_bound"]),
+        "max_abs_err": max(l1["max_abs_err"], l2["max_abs_err"]),
+        "ms": l1["ms"],
+        "plain_ms": l1["plain_ms"],
+        "bound_ms": l1["bound_ms"],
+        "bound_by": l1["bound_by"],
+        "library_ms": l1["library_ms"],
+        "launches_per_lookup": l1["launches_per_lookup"],
+        "old_route_ms": l1["old_route_ms"],
+        "device_ms": l1["device_ms"],
+        "back_to_back_ms": l1["back_to_back_ms"],
+        "library_device_ms": l1["library_device_ms"],
+        "library_back_to_back_ms": l1["library_back_to_back_ms"],
+        "ms_w2": l2["ms"],
+        "plain_ms_w2": l2["plain_ms"],
+        "bound_ms_w2": l2["bound_ms"],
+        "bound_by_w2": l2["bound_by"],
+        "launches_per_lookup_w2": l2["launches_per_lookup"],
+        "old_route_ms_w2": l2["old_route_ms"],
+        "device_ms_w2": l2["device_ms"],
+        "back_to_back_ms_w2": l2["back_to_back_ms"],
         "launches_map": launches_map,
-        "launches_dist": launches_dist,
-        "dist_ms": {t: r["ms"] for t, r in radix_dist.items()},
-        "dist_bound_ms": {t: r["bound_ms"] for t, r in radix_dist.items()},
-        "launches_webapi": launches_webapi,
-        "lookup_ms": lookup_res[1]["ms"],
-        "lookup_plain_ms": lookup_res[1]["plain_ms"],
-        "lookup_bound_ms": lookup_res[1]["bound_ms"],
-        "lookup_library_ms": lookup_res[1]["library_ms"],
-        "lookup_launches_per_lookup": lookup_res[1]["launches_per_lookup"],
-        "lookup_ms_w2": lookup_res[2]["ms"],
-        "lookup_plain_ms_w2": lookup_res[2]["plain_ms"],
-        "lookup_bound_ms_w2": lookup_res[2]["bound_ms"],
-        "lookup_launches_per_lookup_w2": lookup_res[2]["launches_per_lookup"],
+        "launches_dist": lookups_dist,
+        "dist_ms": device_dist["lookup"]["ms"],
+        "dist_bound_ms": device_dist["lookup"]["bound_ms"],
+        "launches_webapi": launches_webapi["lower_bound"],
+        "webapi_map_ms": webapi_ms["lower_bound"],
     }]}
     print(smi)
     print(json.dumps(kernels_line))

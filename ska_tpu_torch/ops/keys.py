@@ -14,6 +14,8 @@ the raw uint64 bits. Two consequences shape every function here:
 import numpy as np
 import torch
 
+from . import lookup
+
 SIGN = -(1 << 63)  # int64 with only the top bit set
 MASK64 = (1 << 64) - 1
 
@@ -142,65 +144,26 @@ def sort_with(keys, payloads, extra_keys=()):
     return torch.stack(res[:W], dim=-1), res[W : W + nex], res[W + nex :]
 
 
-def lookup_operands(sorted_keys, queries):
-    """The sort operands of searchsorted_via_sort, in the radix kernel's
-    limbs-only layout: the W limbs of [queries; table], then int32
-    positions in that concatenation, then a uint8 that is 1 on the
-    queries."""
-    N, W = sorted_keys.shape
-    M = queries.shape[0]
-    from .sort import MAX_ROWS
+def lower_bound(sorted_keys, queries):
+    """Lower bound of (M, W) queries in (N, W) keys sorted unsigned
+    lexicographically (first limb most significant): int64 answers in
+    [0, N], np.searchsorted(side="left"). The port's lookup, counterpart
+    of ska_tpu/ops/keys.py::searchsorted_via_sort, which sorts [queries;
+    table] because gathers are the TPU's weak spot; a card does the
+    search itself.
 
-    if N + M >= MAX_ROWS:
-        raise ValueError(
-            f"lookup of {M} queries in {N} keys: the radix sort takes "
-            f"fewer than {MAX_ROWS} rows")
-    dev = queries.device
-    both = torch.cat([queries, sorted_keys], dim=0)
-    pos = torch.arange(M + N, dtype=torch.int32, device=dev)
-    is_q = (pos < M).to(torch.uint8)
-    return tuple(both[:, i].contiguous() for i in range(W)) + (pos, is_q)
-
-
-def lower_bounds(sorted_ops, M: int):
-    """Lower bounds from the sorted lookup operands: a query at sorted
-    position p has p - (queries before it) table keys before it; one
-    scatter by the carried positions puts the answers in query order
-    (non-query rows write to a dropped slot M)."""
-    W = len(sorted_ops) - 2
-    pos, is_q = sorted_ops[W], sorted_ops[W + 1].bool()
-    n = pos.shape[0]
-    rank = torch.cumsum(is_q, dim=0) - 1
-    table_before = torch.arange(n, device=pos.device) - rank
-    out = torch.empty(M + 1, dtype=torch.int64, device=pos.device)
-    out[torch.where(is_q, pos.long(), M)] = table_before
-    return out[:M]
-
-
-def searchsorted_via_sort(sorted_keys, queries):
-    """Lower-bound lookup of (M, W) queries in (N, W) sorted keys by one
-    sort of the concatenation, as the JAX package does it. Equals
-    np.searchsorted(side="left"): int64 answers in [0, N].
-
-    The JAX package sorts by (limbs, tag) with a query-first tag, then
-    sorts back into query order. Here the queries come first in
-    [queries; table] and the sort is stable, so sorting by the limbs
-    alone (``sort_ops`` with ``num_keys == W``: on a card the radix
-    kernel's limbs-only layout, or it raises) already puts every query
-    before the table keys equal to it; the sort back is one scatter.
-    Nothing is padded: the kernel takes any length below MAX_ROWS.
-    """
-    from .sort import sort_ops
-
-    W = sorted_keys.shape[1]
-    ops = lookup_operands(sorted_keys, queries)
-    return lower_bounds(sort_ops(ops, num_keys=W), queries.shape[0])
+    Tensors on the CPU take the plain version, ``searchsorted``; CUDA
+    tensors launch the hand-written kernel (csrc/lower_bound.cu through
+    ops/lookup.py), which raises on operands it does not take."""
+    if sorted_keys.is_cpu and queries.is_cpu:
+        return searchsorted(sorted_keys, queries)
+    return lookup.lower_bound(sorted_keys, queries)
 
 
 def searchsorted(sorted_keys, queries):
     """Branchless lower-bound binary search of (M, W) queries in (N, W)
     sorted keys: int64 indices in [0, N], O(M log N) gathers. The plain
-    version that the lookup is held against."""
+    version of lower_bound's kernel."""
     N = sorted_keys.shape[0]
     M = queries.shape[0]
     lo = torch.zeros(M, dtype=torch.int64, device=queries.device)

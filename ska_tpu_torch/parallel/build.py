@@ -102,7 +102,7 @@ def _merge_shard(keyv, sid, setv, n_samples):
     #    rank; cummax keeps the cuts monotone for degenerate pivots
     cuts = torch.cat([
         torch.zeros(1, dtype=torch.int64, device=dev),
-        K.searchsorted(skeys, pivots).clamp(max=nv),
+        K.lower_bound(skeys, pivots.contiguous()).clamp(max=nv),
         torch.full((1,), nv, dtype=torch.int64, device=dev),
     ])
     cuts = torch.cummax(cuts, dim=0).values

@@ -5,7 +5,7 @@ ska_tpu/parallel/postbuild.py).
   consecutive row blocks (key ranges); each rank routes its block of
   queries to the rank that owns their key range with one
   all_to_all_single, looks them up in its own block
-  (keys.searchsorted_via_sort, the radix kernel on a card), and sends the
+  (keys.lower_bound, the lookup kernel on a card), and sends the
   answers home by the inverse exchange.
 * distributed_class_gram: the sites are cut into D blocks; each rank
   sums the int8 chunk Grams of its block in int64 (distance.gram_rows)
@@ -34,7 +34,7 @@ def distributed_lookup(sorted_keys, queries, device=None):
     into key ranges over the ranks. Every rank passes the same arrays
     ((R, W) and (Q, W) uint64, or 1-D at W=1). Returns (found bool (Q,),
     global rows int64 (Q,), -1 at a miss) on every rank, as the serial
-    searchsorted_via_sort plus the equality check of RefSka.map."""
+    keys.lower_bound plus the equality check of RefSka.map."""
     dev = get_device(device)
     D, rank = comm.world()
     sorted_keys = np.asarray(sorted_keys, dtype=np.uint64)
@@ -65,7 +65,7 @@ def distributed_lookup(sorted_keys, queries, device=None):
     # 3. the local lookup, global rows or -1
     grow = torch.full((rq.shape[0],), -1, dtype=torch.int64, device=dev)
     if n_keys and rq.shape[0]:
-        idx = K.searchsorted_via_sort(keys_blk, rq).clamp_(0, n_keys - 1)
+        idx = K.lower_bound(keys_blk, rq).clamp_(0, n_keys - 1)
         grow = torch.where(K.equal(keys_blk[idx], rq), rank * Rb + idx, grow)
 
     # 4. answers home by the inverse exchange, back into query order; the

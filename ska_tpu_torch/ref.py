@@ -3,9 +3,9 @@
 Counterpart of reference src/ska_ref.rs: the reference's split k-mers
 are listed in positional order (parallel numpy arrays), extracted on the
 device by ops/extract.py, and mapping is one lookup of those keys in the
-sample array's sorted keys (ops/keys.py::searchsorted_via_sort, on a
-card the radix sort kernel) in place of the per-k-mer hashmap lookups of
-RefSka::map (ska_ref.rs:508-533). The pseudoalignment writer is the host
+sample array's sorted keys (ops/keys.py::lower_bound, on a card the
+lookup kernel csrc/lower_bound.cu) in place of the per-k-mer hashmap
+lookups of RefSka::map (ska_ref.rs:508-533). The pseudoalignment writer is the host
 library's AlnWriter (csrc/host/aln_write.cpp); the VCF writer is host
 Python, as in the JAX package.
 
@@ -244,8 +244,7 @@ class RefSka:
             else:
                 table = KD.from_numpy_keys(sorted_keys, self.device)
                 queries = KD.from_numpy_keys(self.kmers, self.device)
-                idx = KD.searchsorted_via_sort(table, queries).clamp_(
-                    0, arr.ksize - 1)
+                idx = KD.lower_bound(table, queries).clamp_(0, arr.ksize - 1)
                 found = KD.equal(table[idx], queries)
                 hit_t = torch.nonzero(found).squeeze(1)
                 hit = hit_t.cpu().numpy()

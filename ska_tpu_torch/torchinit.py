@@ -32,12 +32,14 @@ def get_device(device=None) -> torch.device:
 
 def launch_counts() -> dict:
     """{kernel name: launches} since the last reset_launch_counts()."""
-    from .ops import sort
+    from .ops import lookup, sort
 
-    return {"radix_sort": sort.radix_launches}
+    return {"radix_sort": sort.radix_launches,
+            "lower_bound": lookup.lower_bound_launches}
 
 
 def reset_launch_counts():
-    from .ops import sort
+    from .ops import lookup, sort
 
     sort.radix_launches = 0
+    lookup.lower_bound_launches = 0

@@ -1,9 +1,14 @@
 """The port's `ska map` and `ska weed` on the CPU, against the JAX package.
 
-- ops.keys.searchsorted_via_sort equals ska_tpu.ops.keys.searchsorted_via_sort
+- ops.keys.lower_bound (on the CPU its plain version, the binary search
+  ops.keys.searchsorted) equals ska_tpu.ops.keys.searchsorted_via_sort
   and np.searchsorted (side="left") at W=1 and W=2, with duplicates, an
   empty table, no queries, more queries than keys and the other way
-  round; the port's binary search, ops.keys.searchsorted, too;
+  round, runs of equal keys, all-ones keys and queries, one key, and W=2
+  keys whose first limbs tie; a numpy emulation of the lookup kernel's
+  algorithm (csrc/lower_bound.cu: splitters, then the window) equals
+  np.searchsorted on the same cases; the kernel's wrapper refuses what
+  the kernel does not take without launching;
 - ref.RefSka lists the JAX RefSka's kmers, pos, chrom, krc and
   repeat_coors on a multi-record reference (an empty record, one shorter
   than k, an N run, IUPAC letters, repeats) at k=17 and k=41, on one
@@ -34,7 +39,7 @@ from ska_tpu.sampletypes import QualOpts
 from ska_tpu_torch import api as tapi
 from ska_tpu_torch.io import skf as tskf
 from ska_tpu_torch.ops import keys as TK
-from ska_tpu_torch.ops import sort as SO
+from ska_tpu_torch.ops import lookup as LU
 from ska_tpu_torch.ref import RefSka as TRefSka
 
 jref = importlib.import_module("ska_tpu.ref")
@@ -66,12 +71,80 @@ def _lookup_case(W, N, M, seed):
     pool[:2] = ALL_ONES
     pool[2:4, 0] = 0  # a zero hi limb (or a zero key at W=1)
     table = pool[rng.integers(0, len(pool), N)]
-    table = table[np.lexsort(table.T[::-1])] if N else table
+    table = _sorted(table)
     queries = pool[rng.integers(0, len(pool), M)]
     fresh = rng.random(M) < 0.3
     queries[fresh] = rng.integers(0, 2**64 - 1, size=(int(fresh.sum()), W),
                                   dtype=np.uint64, endpoint=True)
     return table, queries
+
+
+def _sorted(keys):
+    return keys[np.lexsort(keys.T[::-1])] if len(keys) else keys
+
+
+def _near(keys, rng, M):
+    """M queries drawn from keys, each moved by -1, 0 or +1 in its last
+    limb (wrapping), so they fall just below, on and just above keys."""
+    q = keys[rng.integers(0, len(keys), M)].copy()
+    q[:, -1] += rng.integers(-1, 2, M).astype(np.uint64)
+    return q
+
+
+def _edge_case(kind, W, seed):
+    """The lookup's edge cases: long runs of equal keys ("runs"), a
+    table that is mostly all-ones with all-ones queries ("ones"), one key
+    ("one"), and at W=2 runs of tied first limbs ("hi_ties")."""
+    rng = np.random.default_rng(seed)
+    with np.errstate(over="ignore"):
+        if kind == "runs":
+            distinct = rng.integers(0, 2**64 - 1, size=(40, W),
+                                    dtype=np.uint64, endpoint=True)
+            table = _sorted(np.repeat(distinct, rng.integers(1, 60, 40),
+                                      axis=0))
+            return table, _near(table, rng, 700)
+        if kind == "ones":
+            low = rng.integers(0, 2**64 - 1, size=(12, W), dtype=np.uint64,
+                               endpoint=True)
+            table = _sorted(np.concatenate(
+                [low, np.full((300, W), ALL_ONES, np.uint64)]))
+            queries = _near(table, rng, 400)
+            queries[::3] = ALL_ONES
+            return table, queries
+        if kind == "one":
+            table = rng.integers(0, 2**64 - 1, size=(1, W), dtype=np.uint64,
+                                 endpoint=True)
+            queries = np.concatenate([
+                _near(table, rng, 30),
+                np.zeros((1, W), np.uint64),
+                np.full((1, W), ALL_ONES, np.uint64)])
+            return table, queries
+        assert kind == "hi_ties" and W == 2
+        hi = rng.integers(0, 2**64 - 1, size=4, dtype=np.uint64,
+                          endpoint=True)
+        hi[0] = ALL_ONES
+        table = np.stack([rng.choice(hi, 900), rng.integers(
+            0, 2**64 - 1, size=900, dtype=np.uint64, endpoint=True)], -1)
+        table[:40, 1] = 0
+        table[40:80, 1] = ALL_ONES
+        table = _sorted(table)
+        queries = _near(table, rng, 500)
+        queries[::7, 1] = rng.integers(0, 2**64 - 1, size=len(queries[::7]),
+                                       dtype=np.uint64, endpoint=True)
+        return table, queries
+
+
+LOOKUP_CASES = (
+    [(W, N, M) for W in (1, 2) for N, M in [(600, 900), (0, 50), (300, 0),
+                                            (40, 900), (900, 40)]]
+    + [(W, kind, None) for W in (1, 2) for kind in ("runs", "ones", "one")]
+    + [(2, "hi_ties", None)])
+
+
+def _case(W, N, M):
+    if isinstance(N, str):
+        return _edge_case(N, W, seed=len(N) + W)
+    return _lookup_case(W, N, M, seed=N + 7 * M + W)
 
 
 def _np_lower_bound(table, queries):
@@ -81,38 +154,98 @@ def _np_lower_bound(table, queries):
                            jarray._combine128(queries), side="left")
 
 
-@pytest.mark.parametrize("W", [1, 2])
-@pytest.mark.parametrize("N,M", [(600, 900), (0, 50), (300, 0), (40, 900),
-                                 (900, 40)])
-def test_searchsorted_via_sort_matches_jax(W, N, M):
-    table, queries = _lookup_case(W, N, M, seed=N + 7 * M + W)
-    got = TK.searchsorted_via_sort(TK.from_numpy_keys(table),
-                                   TK.from_numpy_keys(queries))
+@pytest.mark.parametrize("W,N,M", LOOKUP_CASES)
+def test_lower_bound_matches_jax(W, N, M):
+    table, queries = _case(W, N, M)
+    got = TK.lower_bound(TK.from_numpy_keys(table), TK.from_numpy_keys(queries))
     assert got.dtype == torch.int64
     want = _np_lower_bound(table, queries)
     assert np.array_equal(got.numpy(), want)
     jax_got = np.asarray(JK.searchsorted_via_sort(jnp.asarray(table),
                                                   jnp.asarray(queries)))
     assert np.array_equal(got.numpy(), jax_got)
-    bs = TK.searchsorted(TK.from_numpy_keys(table), TK.from_numpy_keys(queries))
-    assert np.array_equal(bs.numpy(), want)
 
 
-def test_lookup_sort_operands(monkeypatch):
-    """The lookup sorts [queries; table] by the limbs alone (the radix
-    kernel's num_keys == W layout): int32 positions, a uint8 query flag;
-    it refuses N + M rows at the kernel's limit."""
-    table, queries = _lookup_case(2, 50, 30, seed=1)
-    ops = TK.lookup_operands(TK.from_numpy_keys(table),
-                             TK.from_numpy_keys(queries))
-    assert [x.dtype for x in ops] == [torch.int64] * 2 + [torch.int32, torch.uint8]
-    assert all(x.is_contiguous() and x.shape == (80,) for x in ops)
-    assert ops[3].tolist() == [1] * 30 + [0] * 50
-    assert np.array_equal(TK.to_numpy_keys(torch.stack(ops[:2], -1)),
-                          np.concatenate([queries, table]))
-    monkeypatch.setattr(SO, "MAX_ROWS", 80)  # the kernel's row limit
-    with pytest.raises(ValueError, match="fewer than 80 rows"):
-        TK.lookup_operands(TK.from_numpy_keys(table), TK.from_numpy_keys(queries))
+def _less(a, b):
+    """Unsigned lexicographic a < b over rows of uint64 limbs."""
+    lt = a[..., 0] < b[..., 0]
+    if a.shape[-1] == 2:
+        lt |= (a[..., 0] == b[..., 0]) & (a[..., 1] < b[..., 1])
+    return lt
+
+
+def _emulate_lower_bound(table, queries):
+    """The lookup kernel's algorithm in numpy, step for step: the
+    wrapper's splitter plan, the lifting over the splitters, then the
+    lifting over the window of rows after the last splitter below."""
+    n = len(table)
+    s, n_split = LU.splitter_plan(n, table.shape[1])
+    split = table[(np.arange(n_split) << s)]
+    c = np.zeros(len(queries), np.int64)
+    step = 1 << (n_split.bit_length() - 1) if n_split else 0
+    while step:
+        j = c + step
+        r = np.minimum(j, n_split) - 1
+        c = np.where((j <= n_split) & _less(split[r], queries), j, c)
+        step >>= 1
+    lo = np.where(c > 0, (c - 1) << s, -1)
+    step = (1 << s) >> 1
+    while step:
+        j = lo + step
+        key = table[np.minimum(j, n - 1)]
+        lo = np.where((j < n) & _less(key, queries), j, lo)
+        step >>= 1
+    return lo + 1
+
+
+@pytest.mark.parametrize("W,N,M", LOOKUP_CASES)
+def test_lower_bound_kernel_algorithm(W, N, M, monkeypatch):
+    """With 64 bytes of splitters in place of 128 KiB (8 at W=1, 4 at
+    W=2), every case of more than 8 keys ends in windows of several
+    rows."""
+    monkeypatch.setattr(LU, "SPLITTER_BYTES", 64)
+    table, queries = _case(W, N, M)
+    s, n_split = LU.splitter_plan(len(table), W)
+    assert n_split <= 8 // W and (n_split << s) >= len(table)
+    assert np.array_equal(_emulate_lower_bound(table, queries),
+                          _np_lower_bound(table, queries))
+
+
+def _bad_operands(kind):
+    keys = torch.arange(12, dtype=torch.int64).reshape(6, 2)
+    if kind == "dtype":
+        return keys.to(torch.int32), keys.to(torch.int32)
+    if kind == "w3":
+        keys = torch.arange(18, dtype=torch.int64).reshape(6, 3)
+        return keys, keys
+    if kind == "w_mismatch":
+        return keys, keys[:, :1].contiguous()
+    if kind == "strided":
+        return keys, keys.t().contiguous().t()
+    if kind == "one_dim":
+        return keys[:, 0].contiguous(), keys[:, 0].contiguous()
+    assert kind == "cpu"
+    return keys, keys
+
+
+@pytest.mark.parametrize("kind,error,match", [
+    ("dtype", TypeError, "int64"),
+    ("w3", ValueError, "1 or 2 limbs"),
+    ("w_mismatch", ValueError, "do not compare"),
+    ("strided", ValueError, "contiguous"),
+    ("one_dim", ValueError, r"\(rows, W\)"),
+    ("cpu", ValueError, "one CUDA device"),
+])
+def test_lower_bound_wrapper_refuses(kind, error, match):
+    """The kernel's wrapper raises on what the kernel does not take,
+    before it loads or launches anything."""
+    keys, queries = _bad_operands(kind)
+    before = LU.lower_bound_launches
+    with pytest.raises(error, match=match):
+        LU.check_operands(keys, queries)
+    with pytest.raises(error, match=match):
+        LU.lower_bound(keys, queries)
+    assert LU.lower_bound_launches == before and LU._LIB is None
 
 
 # ------------------------------------------------------------ reference scan

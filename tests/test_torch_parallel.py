@@ -488,7 +488,7 @@ def test_lookup_matches_serial_and_jax_mesh(worlds, world, W):
     keys, qs = _lookup_case(W)
     got = _result(worlds, world, f"lookup_w{W}")
     table = TK.from_numpy_keys(keys)
-    idx = TK.searchsorted_via_sort(table, TK.from_numpy_keys(qs)).clamp(0, len(keys) - 1)
+    idx = TK.lower_bound(table, TK.from_numpy_keys(qs)).clamp(0, len(keys) - 1)
     found = TK.equal(table[idx], TK.from_numpy_keys(qs)).numpy()
     rows = np.where(found, idx.numpy(), -1)
     j_found, j_rows = distributed_lookup(keys, qs, _jax_mesh(world))
