@@ -6,7 +6,7 @@
 Run from the root of a checkout; it needs one CUDA card and refuses to
 run without one. --dist-only runs phase 1, builds what phase 9 compares
 with, phase 9 and graft_entry.dryrun_multichip on every card: for a
-machine of several cards. Eleven phases, and any
+machine of several cards. Twelve phases, and any
 failure ends the run with a non-zero exit (nothing is caught, nothing
 moves to the CPU or to gloo):
 
@@ -87,7 +87,11 @@ moves to the CPU or to gloo):
    route's; the aln once more with SKA_MAX_CHUNK_BASES = 1048448, so
    that the chromosome extracts in k-1-overlap slices, equal to the
    unsliced bytes; the lookup kernel launched in every card map; a warm
-   k=31 VCF map under torch.profiler (spans and device).
+   k=31 VCF map under torch.profiler (spans and device); then that map's
+   own lookup (k31.skf's keys, the reference's split k-mers) by the
+   lookup kernel and by torch.searchsorted, answers equal, timed in
+   turns as in phase 2, and both back to back on uniform random keys and
+   queries of the same shape.
 8. `ska distance` of k31.skf, plain, --min-freq 0.5 and
    --allow-ambiguous, TSV bytes equal to the CPU route's; then the class
    Gram of k31.skf's variable sites and of 512 samples x 2^20 sites on a
@@ -112,7 +116,7 @@ moves to the CPU or to gloo):
    kernel launched: `ska nk` (and --full-info) of k31.skf;
    `ska delete` of genomes 04-20 (a -f list) and of 00-03 from k31.skf,
    then `ska merge` of the two halves, equal to k31.skf in keys,
-   variants, counts and names; `ska lo` of the first 100,000 bases of
+   variants, counts and names; `ska lo` of the first 50,000 bases of
    the chromosomes of genomes 00-03 (built on the card at k=31 and
    k=63), at k=31 with genome 00's cut chromosome as the reference at
    --threads 1 and min(8, cores), all four output files byte-equal, and
@@ -137,7 +141,22 @@ moves to the CPU or to gloo):
    per call. Then graft_entry.entry()'s step on the card, every
    output equal to the same step on the CPU, and
    graft_entry.dryrun_multichip(torch.cuda.device_count()) on NCCL
-   (rows > 0, the radix kernel launched on rank 0).
+   (rows > 0, the radix kernel launched on rank 0). The radix sorts of
+   the card's calls, of the profiled map and of entry() are logged by
+   shape with their bound.
+12. The CLI's two switches, each command `python -m ska_tpu_torch ...
+   --device cuda` in a process of its own under SKA_PROFILE=<dir> and
+   SKA_DISPATCH_STATS=1: `build -k 63` of phase 3's first 4 genomes
+   (.skf bytes equal to phase 3's k63.skf, the stats line's launches
+   equal to those phase 3 counted in-process for that build, a
+   ska::device_pass span and the radix kernel's scatter_kernel events in
+   the trace), `map -f vcf` of genome00.fa to k31.skf (bytes equal to
+   phase 7's, 2 lookup launches, search_kernel events) and `nk` of
+   k31.skf (no launch, a trace without a CUDA event); each one trace
+   file and one stats line, no kernel built again (kernel_builds 0); the
+   hand-written kernels' device time in each trace and their share of
+   its traced wall time. A trace without the kernels' device events is
+   taken again, up to 3 runs.
 
 The last lines are the card's name and power limit (nvidia-smi), one
 JSON line with each kernel's launches, error and times, and the result
@@ -152,6 +171,7 @@ import json
 import logging
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -180,7 +200,7 @@ MAP_SLICE_CAP = 1_048_448  # phase 7's sliced run: 2^20 - 128 bases a slice
 GRAM_SAMPLES = 512  # phase 8's cohort-size Gram: samples ...
 GRAM_SITES_LOG2 = 20  # ... and variable sites
 LO_GENOMES = 4  # phase 10's lo cohort: genomes 00-03 ...
-LO_BASES = 100_000  # ... cut to the first bases of the chromosome
+LO_BASES = 50_000  # ... cut to the first bases of the chromosome
 ALL_ONES = 0xFFFFFFFFFFFFFFFF
 DEVICE = "cuda"
 
@@ -550,31 +570,18 @@ def phase_lookup(torch, SO, LU, TK, W, seed, dev):
     # each call timed alone after the 50 MB L2 is flushed, as map's one
     # lookup of a table finds it
     flush = torch.empty(1 << 27, dtype=torch.uint8, device=dev)
-
-    def cold_ms(fn, reps):
-        out = []
-        for _ in range(reps):
-            flush.zero_()
-            out += time_ms(torch, fn, 1)
-        return out
-
     kern, plain, lib, old = [], [], [], []
     for _ in range(3):
-        plain += cold_ms(lambda: TK.searchsorted(table, queries), 1)
-        kern += cold_ms(lambda: TK.lower_bound(table, queries), 2)
+        plain += cold_ms(torch, lambda: TK.searchsorted(table, queries), 1, flush)
+        kern += cold_ms(torch, lambda: TK.lower_bound(table, queries), 2, flush)
         if W == 1:
-            lib += cold_ms(library, 2)
-        old += cold_ms(lambda: old_lookup(torch, SO, table, queries), 2)
-        plain += cold_ms(lambda: TK.searchsorted(table, queries), 1)
+            lib += cold_ms(torch, library, 2, flush)
+        old += cold_ms(torch, lambda: old_lookup(torch, SO, table, queries), 2,
+                       flush)
+        plain += cold_ms(torch, lambda: TK.searchsorted(table, queries), 1, flush)
     del flush
     if lib:
         lib_ms = statistics.median(lib)
-
-    def back_to_back(fn, calls=20):
-        """Per-call ms of `calls` calls between two events, warm: the
-        card's time with the host's launch gaps hidden behind it."""
-        return statistics.median(time_ms(
-            torch, lambda: [fn() for _ in range(calls)], 3)) / calls
 
     bound, bound_by = lookup_bound(W, N, M)
     split = kernel_split(torch, lambda: TK.lower_bound(table, queries))
@@ -588,13 +595,14 @@ def phase_lookup(torch, SO, LU, TK, W, seed, dev):
         "launches_per_lookup": per_lookup,
         "old_route_ms": statistics.median(old),
         "device_ms": device_ms(split),
-        "back_to_back_ms": back_to_back(lambda: TK.lower_bound(table, queries)),
+        "back_to_back_ms": back_to_back(
+            torch, lambda: TK.lower_bound(table, queries)),
         "library_device_ms": None,
         "library_back_to_back_ms": None,
     }
     if W == 1:
         res["library_device_ms"] = device_ms(kernel_split(torch, library))
-        res["library_back_to_back_ms"] = back_to_back(library)
+        res["library_back_to_back_ms"] = back_to_back(torch, library)
     lib_txt = "" if lib_ms is None else (
         f"; library torch.searchsorted on the sign-biased limb {lib_ms:.3f} ms "
         f"(runs {[round(x, 3) for x in lib]}), device "
@@ -622,6 +630,24 @@ def phase_lookup(torch, SO, LU, TK, W, seed, dev):
     return res
 
 
+def cold_ms(torch, fn, reps, flush):
+    """Per-call ms of `reps` calls of fn (CUDA events), each alone after
+    the 50 MB L2 is flushed by zeroing `flush` (a 128 MB tensor), as a
+    command's one call finds it."""
+    out = []
+    for _ in range(reps):
+        flush.zero_()
+        out += time_ms(torch, fn, 1)
+    return out
+
+
+def back_to_back(torch, fn, calls=20):
+    """Per-call ms of `calls` calls between two events, warm: the card's
+    time with the host's launch gaps hidden behind it."""
+    return statistics.median(time_ms(
+        torch, lambda: [fn() for _ in range(calls)], 3)) / calls
+
+
 def kernel_split(torch, fn, tries=3):
     """Device time of each kernel of one call of fn, by torch.profiler:
     {kernel name: (launches, ms)}. A profile that saw no device activity
@@ -639,6 +665,19 @@ def kernel_split(torch, fn, tries=3):
         if split:
             return split
     return {}
+
+
+def device_total_ms(torch, fn, tries=3):
+    """Device ms of one call of fn: its device events under a CPU and
+    CUDA profile, as profile_call takes it (a CUDA-only profile, as
+    kernel_split takes it, saw nothing six times in a row after phase
+    7's profiled map on one H100); taken again up to `tries` times,
+    None if no profile saw any."""
+    for _ in range(tries):
+        _, _, kernels = profile_call(torch, fn, need_device=False)
+        if kernels:
+            return sum(t for _, t in kernels.values()) / 1e3
+    return None
 
 
 def device_ms(split):
@@ -708,6 +747,7 @@ def phase_main(torch, cli, torchinit, cohort, k, tag):
     cli.main(["build", "-k", str(k), "-o", out, "--device", "cuda", *paths])
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
+    build_launches = torchinit.launch_counts()
     t0 = time.perf_counter()
     cli.main(["align", out + ".skf", "-o", out + ".aln", "--device", "cuda"])
     t_align = time.perf_counter() - t0
@@ -736,7 +776,7 @@ def phase_main(torch, cli, torchinit, cohort, k, tag):
         f"({windows} windows, {rate:.0f} split k-mers/s end to end), align "
         f"{t_align:.3f} s, plain CPU route build {t_cpu:.3f} s (a process "
         f"of its own)")
-    return launches, rate, t_build
+    return launches, rate, t_build, build_launches
 
 
 # ---------------------------------------------------------------- phase 4
@@ -764,9 +804,10 @@ def phase_profile(torch, cli, argv, ref_skf, t_build, phase, what):
     log_profile(phase, "the build", wall, spans, kernels)
 
 
-def profile_call(torch, fn):
+def profile_call(torch, fn, need_device=True):
     """fn() under torch.profiler: (wall s, {ska:: span: (calls, us) of
-    host time}, {device item: (calls, us)})."""
+    host time}, {device item: (calls, us)}); a profile without device
+    activity fails, unless need_device is False."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -776,12 +817,13 @@ def profile_call(torch, fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return (wall,) + profile_events(prof)
+    return (wall,) + profile_events(prof, need_device)
 
 
-def profile_events(prof):
+def profile_events(prof, need_device=True):
     """({ska:: span: (calls, us) of host time}, {device item: (calls,
-    us)}) of a finished torch.profiler run."""
+    us)}) of a finished torch.profiler run; one without device activity
+    fails, unless need_device is False."""
     from torch.autograd import DeviceType
 
     spans, kernels = {}, {}
@@ -795,7 +837,7 @@ def profile_events(prof):
         elif on_card:
             n, t = kernels.get(e.name, (0, 0.0))
             kernels[e.name] = (n + 1, t + us)
-    check(kernels, "the profiler saw no device activity")
+    check(kernels or not need_device, "the profiler saw no device activity")
     return spans, kernels
 
 
@@ -1085,8 +1127,9 @@ def phase_map(torch, cli, torchinit, cohort):
     """`ska map` of phase 3's .skf files to genome00.fa (a chromosome and
     a plasmid) on the card, byte for byte against the plain CPU route;
     the aln once more with the chromosome in k-1-overlap slices; then a
-    warm k=31 VCF map under torch.profiler. Returns the lookup kernel's
-    launches in the card's maps."""
+    warm k=31 VCF map under torch.profiler and its lookup timed beside
+    the library call. Returns the lookup kernel's launches in the card's
+    maps and real_table_lookup's times."""
     from ska_tpu_torch import ref as R
     from ska_tpu_torch.io import skf
 
@@ -1152,18 +1195,89 @@ def phase_map(torch, cli, torchinit, cohort):
         with open(os.path.join(d, "k31_profiled.vcf"), "w") as fh:
             ska_ref.write_vcf(fh)
         mapped["n"] = len(ska_ref.mapped_pos)
-        mapped["queries"] = ska_ref.ksize
-        mapped["keys"] = arr.ksize
+        mapped["arr"], mapped["ref"] = arr, ska_ref
 
     wall, spans, kernels = profile_call(torch, map_vcf)
     same, _ = same_bytes(os.path.join(d, "k31_profiled.vcf"),
                          os.path.join(d, f"k31_vcf_{DEVICE}.vcf"))
     check(same, "the profiled map wrote other VCF bytes")
     log(f"phase 7: k=31 VCF map under torch.profiler: {wall:.3f} s wall; "
-        f"{mapped['n']} of the reference's {mapped['queries']} split k-mers "
-        f"mapped to the {mapped['keys']} keys of k31.skf")
+        f"{mapped['n']} of the reference's {mapped['ref'].ksize} split k-mers "
+        f"mapped to the {mapped['arr'].ksize} keys of k31.skf")
     log_profile("phase 7", "the map", wall, spans, kernels)
-    return launches
+    real = real_table_lookup(torch, mapped["arr"].sorted_view()[0],
+                             mapped["ref"].kmers)
+    return launches, real
+
+
+def real_table_lookup(torch, sorted_keys, kmers):
+    """The map's own lookup, k31.skf's sorted keys and the reference's
+    split k-mers (W=1), by the lookup kernel and by the library call,
+    torch.searchsorted on the sign-biased limb: equal answers, then in
+    turns each call alone after an L2 flush, device time (profiler) and
+    back to back, beside the bound."""
+    from ska_tpu_torch.ops import keys as TK
+
+    table = TK.from_numpy_keys(sorted_keys, DEVICE)
+    queries = TK.from_numpy_keys(kmers, DEVICE)
+    (N, W), M = table.shape, queries.shape[0]
+    check(W == 1, f"phase 7: k31.skf's keys have {W} limbs")
+    biased = (table[:, 0] ^ TK.SIGN, queries[:, 0] ^ TK.SIGN)
+
+    def kernel():
+        return TK.lower_bound(table, queries)
+
+    def library():
+        return torch.searchsorted(*biased)
+
+    check(torch.equal(kernel(), library()),
+          "phase 7: torch.searchsorted differs from the lookup kernel")
+    flush = torch.empty(1 << 27, dtype=torch.uint8, device=DEVICE)
+    kern, lib = [], []
+    for _ in range(3):
+        kern += cold_ms(torch, kernel, 2, flush)
+        lib += cold_ms(torch, library, 2, flush)
+    del flush
+    bound, bound_by = lookup_bound(W, N, M)
+    res = {
+        "ms": statistics.median(kern),
+        "library_ms": statistics.median(lib),
+        "device_ms": device_total_ms(torch, kernel),
+        "library_device_ms": device_total_ms(torch, library),
+        "back_to_back_ms": back_to_back(torch, kernel),
+        "library_back_to_back_ms": back_to_back(torch, library),
+        "bound_ms": bound,
+        "bound_by": bound_by,
+    }
+    # the same shape on uniform keys and queries in random order, to tell
+    # the table's size from its data
+    g = torch.Generator(device=DEVICE).manual_seed(7)
+    uniform = torch.unique(torch.randint(0, 1 << 60, (N + N // 64,),
+                                         generator=g, device=DEVICE))[:N]
+    u_queries = uniform[torch.randint(0, N, (M,), generator=g, device=DEVICE)]
+    u_table, u_q = uniform[:, None].contiguous(), u_queries[:, None].contiguous()
+    u_biased = (uniform ^ TK.SIGN, u_queries ^ TK.SIGN)
+    check(torch.equal(TK.lower_bound(u_table, u_q),
+                      torch.searchsorted(*u_biased)),
+          "phase 7: the uniform table's answers differ")
+    res["uniform_back_to_back_ms"] = back_to_back(
+        torch, lambda: TK.lower_bound(u_table, u_q))
+    res["uniform_library_back_to_back_ms"] = back_to_back(
+        torch, lambda: torch.searchsorted(*u_biased))
+    del uniform, u_queries, u_table, u_q, u_biased
+    log(f"phase 7: the map's lookup, {M} queries in {N} keys, W=1: lookup "
+        f"kernel {res['ms']:.3f} ms a call after an L2 flush (runs "
+        f"{[round(x, 3) for x in kern]}), device {ms_text(res['device_ms'])}, "
+        f"back to back {res['back_to_back_ms']:.3f} ms; library "
+        f"torch.searchsorted {res['library_ms']:.3f} ms (runs "
+        f"{[round(x, 3) for x in lib]}), device "
+        f"{ms_text(res['library_device_ms'])}, back to back "
+        f"{res['library_back_to_back_ms']:.3f} ms; bound {bound:.3f} ms by "
+        f"{bound_by}; answers equal. The same shape on uniform random keys "
+        f"and queries, back to back: lookup kernel "
+        f"{res['uniform_back_to_back_ms']:.3f} ms, library "
+        f"{res['uniform_library_back_to_back_ms']:.3f} ms")
+    return res
 
 
 # ---------------------------------------------------------------- phase 8
@@ -1942,6 +2056,7 @@ def phase_webapi(torch, torchinit, cohort):
     import numpy as np
 
     from ska_tpu_torch import graft_entry
+    from ska_tpu_torch.ops import sort as SO
 
     d = os.path.join(WORK, "webapi")
     os.makedirs(d, exist_ok=True)
@@ -1961,12 +2076,14 @@ def phase_webapi(torch, torchinit, cohort):
         with open(cpu_json) as f:
             return json.load(f), time.perf_counter() - t0
 
-    with cf.ThreadPoolExecutor(1) as pool:
+    with cf.ThreadPoolExecutor(1) as pool, \
+            CallBytes(SO, "_sort_cuda") as sorts:
         cpu_future = pool.submit(cpu_route)
         t0 = time.perf_counter()
         card = run_webapi(DEVICE, torch, torchinit)
         t_card = time.perf_counter() - t0
         cpu, t_cpu = cpu_future.result()
+    log_sort_bounds("phase 11 [the card's calls]", sorts)
 
     launches = {"radix_sort": 0, "lower_bound": 0}
     for tag, (res, wall, n) in card.items():
@@ -2013,8 +2130,11 @@ def phase_webapi(torch, torchinit, cohort):
     query = os.path.join(WORK, "genome01.fa")
     warm = ska.map(query)
     mapped = {}
-    wall, _, kernels = profile_call(
-        torch, lambda: mapped.__setitem__("json", ska.map(query)))
+    with CallBytes(SO, "_sort_cuda") as map_sorts:
+        wall, _, kernels = profile_call(
+            torch, lambda: mapped.__setitem__("json", ska.map(query)))
+    map_bound = log_sort_bounds("phase 11 [SkaData k31 / map genome01]",
+                                map_sorts)
     check(mapped["json"] == warm == card["SkaData k31 / map genome01"][0],
           "phase 11: the profiled map gave another JSON string")
     map_ms = {
@@ -2024,16 +2144,19 @@ def phase_webapi(torch, torchinit, cohort):
             ("radix_sort", ("histogram_kernel", "scatter_kernel")),
             ("lower_bound", ("splitter_kernel", "search_kernel")))}
     log(f"phase 11 [SkaData k31 / map genome01, profiled]: {wall:.3f} s wall; "
-        f"device time {', '.join(f'{k} {v:.3f} ms' for k, v in map_ms.items())}")
+        f"device time {', '.join(f'{k} {v:.3f} ms' for k, v in map_ms.items())}"
+        f"; the radix sorts' bound {map_bound:.3f} ms")
     log_profile("phase 11", "the map", wall, {}, kernels, top=5)
 
     # graft_entry: the flagship step on the card and on the CPU
     fn, args = graft_entry.entry()
     torchinit.reset_launch_counts()
     t0 = time.perf_counter()
-    got = fn(*args)
-    torch.cuda.synchronize()
+    with CallBytes(SO, "_sort_cuda") as entry_sorts:
+        got = fn(*args)
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    entry_bound = log_sort_bounds("phase 11 [entry]", entry_sorts)
     n = torchinit.launch_counts()["radix_sort"]
     want = fn(*(a.cpu() for a in args))
     check(n > 0, "phase 11 [entry]: the radix kernel was not launched")
@@ -2044,7 +2167,21 @@ def phase_webapi(torch, torchinit, cohort):
         f"bases, {int(got[3])} rows, every output equal to the CPU's; "
         f"{wall:.3f} s wall (first call), {n} radix launches")
     dryrun(torch, graft_entry, torch.cuda.device_count())
-    return launches, map_ms
+    return launches, map_ms, {"map": map_bound, "entry": entry_bound}
+
+
+def log_sort_bounds(what, sorts):
+    """Log each shape of the radix sorts a CallBytes recorded, with its
+    calls and the bound of one (each operand read and written once at
+    the card's memory rate); returns the bound of them all, ms."""
+    shapes = {}
+    for shape, nbytes in sorts.calls:
+        n, _ = shapes.get(shape, (0, 0))
+        shapes[shape] = (n + 1, nbytes)
+    for shape, (n, nbytes) in shapes.items():
+        log(f"{what}: {n} radix sorts of [{shape}], bound "
+            f"{nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms each")
+    return sum(b for _, b in sorts.calls) / HBM_BYTES_PER_S * 1e3
 
 
 def dryrun(torch, graft_entry, world):
@@ -2067,6 +2204,131 @@ def dryrun(torch, graft_entry, world):
     log(f"phase 11 [dryrun_multichip({world})]: {report}; {wall:.3f} s wall "
         f"(rank processes started, joined and run)")
     return report
+
+
+# ---------------------------------------------------------------- phase 12
+
+# the hand-written kernels' device functions, by the counter they count in
+KERNEL_NAMES = {"radix_sort": ("histogram_kernel", "scatter_kernel"),
+                "lower_bound": ("splitter_kernel", "search_kernel")}
+# Chrome-trace categories of the card's work and of the CUDA runtime
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset", "cuda_runtime",
+               "cuda_driver")
+
+
+def switched_run(tag, argv, device_names, tries=3):
+    """`python -m ska_tpu_torch <argv> --device cuda` in a process of its
+    own under SKA_PROFILE=<dir> and SKA_DISPATCH_STATS=1: one trace,
+    rank0.*.pt.trace.json, and one stats line. A trace that holds no
+    device event named by each of `device_names` (the profiler once saw
+    none, phase 2) is taken again, up to `tries` runs. Returns (stdout,
+    wall s, stats, trace events)."""
+    trace_dir = os.path.join(WORK, "observe", f"trace_{tag}")
+    env = dict(os.environ, SKA_PROFILE=trace_dir, SKA_DISPATCH_STATS="1")
+    for attempt in range(1, tries + 1):
+        shutil.rmtree(trace_dir, ignore_errors=True)
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "ska_tpu_torch", *argv, "--device", DEVICE],
+            cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        check(r.returncode == 0, f"phase 12 [{tag}]: {r.stderr[-3000:]}")
+        lines = re.findall(r"SKA_DISPATCH_STATS (\{.*\})", r.stderr)
+        check(len(lines) == 1, f"phase 12 [{tag}]: {len(lines)} stats lines")
+        traces = os.listdir(trace_dir)
+        check(len(traces) == 1 and re.match(r"rank0\.\d+\.pt\.trace\.json$",
+                                            traces[0]),
+              f"phase 12 [{tag}]: trace files {traces}")
+        with open(os.path.join(trace_dir, traces[0])) as f:
+            events = json.load(f)["traceEvents"]
+        on_card = [e["name"] for e in events if e.get("cat") == "kernel"]
+        if all(any(n in k for k in on_card) for n in device_names):
+            return r.stdout, wall, json.loads(lines[0]), events
+        log(f"phase 12 [{tag}]: run {attempt} of {tries}: the trace holds "
+            f"no device event of {device_names}")
+    check(False, f"phase 12 [{tag}]: no trace held the kernels' events")
+
+
+def trace_split(events):
+    """(the traced wall time, {counter: device ms of its kernels}) of a
+    Chrome trace: the span of its complete events, and the summed
+    durations of each hand-written kernel's device events."""
+    spans = [e for e in events if e.get("ph") == "X" and "dur" in e]
+    t0 = min(float(e["ts"]) for e in spans)
+    t1 = max(float(e["ts"]) + float(e["dur"]) for e in spans)
+    ms = {name: sum(float(e["dur"]) for e in spans
+                    if e.get("cat") == "kernel"
+                    and any(n in e["name"] for n in names)) / 1e3
+          for name, names in KERNEL_NAMES.items()}
+    return (t1 - t0) / 1e3, ms
+
+
+def phase_observe(cohort, build63):
+    """The two switches of `python -m ska_tpu_torch` on the card, each
+    command in a process of its own: the k=63 build of phase 3 (its
+    .skf bytes, its radix launches as phase 3 counted them for that
+    build in-process), the k=31 VCF map of phase 7 (its bytes, 2 lookup
+    launches) and `nk` (a CPU-only trace). No kernel is built again.
+    `nk` runs beside the other two. Returns each run's {counter:
+    launches}."""
+    d = os.path.join(WORK, "observe")
+    os.makedirs(d, exist_ok=True)
+    k31, k63 = (os.path.join(WORK, f"k{k}.skf") for k in (31, 63))
+    runs = [
+        ("build", ["build", "-k", "63", "-o", os.path.join(d, "k63"),
+                   *[p for p, _ in cohort[:GENOMES_K63]]],
+         ("scatter_kernel",)),
+        ("map", ["map", cohort[0][0], k31, "-f", "vcf", "-o",
+                 os.path.join(d, "k31.vcf")], ("search_kernel",)),
+        ("nk", ["nk", k31], ()),
+    ]
+    # nk touches no card: it runs in a thread beside the build and the map
+    with cf.ThreadPoolExecutor(1) as pool:
+        nk = pool.submit(switched_run, *runs[2])
+        done = [(tag, switched_run(tag, argv, names))
+                for tag, argv, names in runs[:2]]
+        done.append(("nk", nk.result()))
+    launches = {}
+    for tag, (stdout, wall, stats, events) in done:
+        names = {e.get("name", "") for e in events}
+        traced_ms, ms = trace_split(events)
+        launches[tag] = stats["launches"]
+        check(stats["kernel_builds"] == 0,
+              f"phase 12 [{tag}]: {stats['kernel_builds']} kernel builds")
+        check(stats["kernel_launches"] == sum(stats["launches"].values()),
+              f"phase 12 [{tag}]: stats {stats}")
+        if tag == "build":
+            same, size = same_bytes(os.path.join(d, "k63.skf"), k63)
+            check(same, "phase 12 [build]: .skf bytes differ from phase 3's")
+            check(stats["launches"] == build63,
+                  f"phase 12 [build]: launches {stats['launches']}, phase 3 "
+                  f"counted {build63} in-process")
+            check("ska::device_pass" in names,
+                  "phase 12 [build]: no ska::device_pass span in the trace")
+            what = f".skf ({size} bytes) equal to phase 3's k63.skf"
+        elif tag == "map":
+            same, size = same_bytes(os.path.join(d, "k31.vcf"), os.path.join(
+                WORK, "map", f"k31_vcf_{DEVICE}.vcf"))
+            check(same, "phase 12 [map]: VCF bytes differ from phase 7's")
+            check(stats["launches"]["lower_bound"] == 2,
+                  f"phase 12 [map]: launches {stats['launches']}")
+            what = f"VCF ({size} bytes) equal to phase 7's"
+        else:
+            check(stats["kernel_launches"] == 0,
+                  f"phase 12 [nk]: launches {stats['launches']}")
+            card = [e["name"] for e in events if e.get("cat") in DEVICE_CATS]
+            check(not card, f"phase 12 [nk]: CUDA events in the trace: {card[:5]}")
+            check(stdout.startswith("ska_version="),
+                  f"phase 12 [nk]: stdout {stdout[:200]!r}")
+            what = "a CPU-only trace"
+        kernel_ms = sum(ms.values())
+        log(f"phase 12 [{tag}]: {what}; {wall:.3f} s wall (a process of its "
+            f"own); stats {json.dumps(stats)}; trace of {len(events)} events "
+            f"over {traced_ms:.3f} ms: hand-written kernels "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+            + f" on the card, {100 * kernel_ms / traced_ms:.3f}% of the traced "
+            f"wall time")
+    return launches
 
 
 # ---------------------------------------------------------------- main
@@ -2138,8 +2400,9 @@ def main():
     cohort = make_cohort(GENOMES, args.seed)
     log(f"phase 3: cohort of {len(cohort)} genomes written in "
         f"{time.perf_counter() - t0:.1f} s")
-    launches31, rate31, t31 = phase_main(torch, cli, torchinit, cohort, 31, "k31")
-    launches63, rate63, _ = phase_main(
+    launches31, rate31, t31, _ = phase_main(torch, cli, torchinit, cohort,
+                                            31, "k31")
+    launches63, rate63, _, build63 = phase_main(
         torch, cli, torchinit, cohort[:GENOMES_K63], 63, "k63")
     log(f"end to end: {rate31:.0f} split k-mers/s at k=31 ({GENOMES} genomes), "
         f"{rate63:.0f} at k=63 ({GENOMES_K63} genomes)")
@@ -2157,7 +2420,7 @@ def main():
         "build (k=31)")
 
     # phase 7: map; phase 8: distance
-    launches_map = phase_map(torch, cli, torchinit, cohort)
+    launches_map, real_lookup = phase_map(torch, cli, torchinit, cohort)
     grams = phase_distance(torch, cli, torchinit, args.seed)
 
     # phase 9: the sharded paths on an NCCL group, one rank per card
@@ -2172,8 +2435,14 @@ def main():
 
     # phase 11: the front ends (webapi, graft_entry)
     t0 = time.perf_counter()
-    launches_webapi, webapi_ms = phase_webapi(torch, torchinit, cohort)
+    launches_webapi, webapi_ms, webapi_bound = phase_webapi(torch, torchinit,
+                                                            cohort)
     log(f"phase 11: {time.perf_counter() - t0:.1f} s in all")
+
+    # phase 12: the CLI's two switches, SKA_PROFILE and SKA_DISPATCH_STATS
+    t0 = time.perf_counter()
+    launches_observed = phase_observe(cohort, build63)
+    log(f"phase 12: {time.perf_counter() - t0:.1f} s in all")
     check("jax" not in sys.modules, "jax was imported")
 
     w1, w2 = sort_res[1], sort_res[2]
@@ -2185,7 +2454,8 @@ def main():
         "replaces": "ska_tpu/ops/sort.py:178",
         "launches": (launches31["radix_sort"] + launches63["radix_sort"]
                      + launches_reads["radix_sort"] + radix_dist
-                     + launches_webapi["radix_sort"]),
+                     + launches_webapi["radix_sort"]
+                     + launches_observed["build"]["radix_sort"]),
         "max_abs_err": max(r["max_abs_err"] for r in (
             *sort_res.values(), *limbs_res.values(), reads_res)),
         "ms": w1["ms"],
@@ -2218,13 +2488,17 @@ def main():
         "dist_bound_ms": {t: device_dist[t]["bound_ms"] for t in ("k31", "k63")},
         "launches_webapi": launches_webapi["radix_sort"],
         "webapi_map_ms": webapi_ms["radix_sort"],
+        "webapi_map_bound_ms": webapi_bound["map"],
+        "entry_bound_ms": webapi_bound["entry"],
+        "launches_observed": launches_observed["build"]["radix_sort"],
     }, {
         "name": "lower_bound",
         "route": "cuda",
         "source": "ska_tpu_torch/csrc/lower_bound.cu",
         "replaces": "ska_tpu/ops/keys.py:195",
         "launches": (launches_map + lookups_dist
-                     + launches_webapi["lower_bound"]),
+                     + launches_webapi["lower_bound"]
+                     + launches_observed["map"]["lower_bound"]),
         "max_abs_err": max(l1["max_abs_err"], l2["max_abs_err"]),
         "ms": l1["ms"],
         "plain_ms": l1["plain_ms"],
@@ -2251,6 +2525,18 @@ def main():
         "dist_bound_ms": device_dist["lookup"]["bound_ms"],
         "launches_webapi": launches_webapi["lower_bound"],
         "webapi_map_ms": webapi_ms["lower_bound"],
+        "launches_observed": launches_observed["map"]["lower_bound"],
+        "real_table_ms": real_lookup["ms"],
+        "real_table_device_ms": real_lookup["device_ms"],
+        "real_table_back_to_back_ms": real_lookup["back_to_back_ms"],
+        "real_table_bound_ms": real_lookup["bound_ms"],
+        "real_table_library_ms": real_lookup["library_ms"],
+        "real_table_library_device_ms": real_lookup["library_device_ms"],
+        "real_table_library_back_to_back_ms":
+            real_lookup["library_back_to_back_ms"],
+        "uniform_table_back_to_back_ms": real_lookup["uniform_back_to_back_ms"],
+        "uniform_table_library_back_to_back_ms":
+            real_lookup["uniform_library_back_to_back_ms"],
     }]}
     print(smi)
     print(json.dumps(kernels_line))

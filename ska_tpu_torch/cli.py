@@ -12,6 +12,14 @@ traceback, a MemoryError with guidance prints it and exits 1, the banner
 and the footer go to stderr, and ``--threads`` sets SKA_THREADS (which
 map's AlnWriter and lo's two C++ cores read). With SKA_COORDINATOR set
 the process joins its group first (parallel/multihost.py).
+
+SKA_PROFILE=<dir> (ska_tpu.cli's switch) runs the command under
+torch.profiler, started after the group join, and writes one Chrome
+trace a process, ``<dir>/rank<r>.<ns>.pt.trace.json`` (r is the rank, 0
+without a group; TensorBoard's profiler plugin and Perfetto read it). It
+records CPU activity, and CUDA activity too where the command's device
+is a card; the host commands record CPU activity alone and resolve no
+device.
 """
 
 import argparse
@@ -38,6 +46,9 @@ from .constants import (
 )
 
 log = logging.getLogger("ska_tpu_torch")
+
+# host code, as in the JAX package: no kernel, no device to resolve
+HOST_COMMANDS = ("merge", "delete", "nk", "lo")
 
 
 def _valid_kmer(s):
@@ -226,14 +237,42 @@ def _main(argv=None):
     joined = bool(os.environ.get("SKA_COORDINATOR")) and init_multihost(
         device=opts.device)
     try:
-        if not _run(args, opts.device):
-            return
+        with _profiled(args.command, opts.device):
+            done = _run(args, opts.device)
     finally:
         if joined:
             import torch.distributed as dist
 
             dist.destroy_process_group()
-    _footer(start)
+    if done:
+        _footer(start)
+
+
+@contextlib.contextmanager
+def _profiled(cmd, device):
+    """The command under torch.profiler when SKA_PROFILE names a
+    directory: one Chrome trace of this process written there when the
+    command returns, on every rank (one with nothing to do too)."""
+    profile_dir = os.environ.get("SKA_PROFILE")
+    if not profile_dir:
+        yield
+        return
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if cmd not in HOST_COMMANDS:
+        from .torchinit import get_device
+
+        if get_device(device).type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+    rank = dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+    with profile(activities=activities) as prof:
+        yield
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, f"rank{rank}.{time.time_ns()}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    log.info("profiler trace written to %s", path)
 
 
 def _run(args, device) -> bool:

@@ -14,7 +14,8 @@ use and again whenever a source, or a header it includes
 when a module is imported, and nothing here falls back to another
 route: a missing compiler or a failed build raises. Each build writes a
 file of its own and renames it into place, so concurrent processes
-(test workers) may race to build the same library.
+(test workers) may race to build the same library. ``builds`` counts
+the compiler runs of this process (SKA_DISPATCH_STATS reports it).
 """
 
 import ctypes
@@ -22,6 +23,7 @@ import glob
 import os
 import shutil
 import subprocess
+import threading
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_PKG, "csrc")
@@ -34,6 +36,11 @@ NVCC_FLAGS = [
     "-Xptxas", "-v",
 ]
 GXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-pthread", "-shared"]
+
+# compiler runs started by _compile in this process (an up-to-date
+# library is no run); libraries may be built from several threads at once
+builds = 0
+_builds_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -58,11 +65,14 @@ def _compile(compiler: str, flags, srcs, so: str, headers=()) -> str:
     """Compile srcs into so unless it is newer than all of them and of
     the headers they include. The compiler's report is kept beside it as
     <so>.log."""
+    global builds
     if os.path.exists(so) and os.path.getmtime(so) >= max(
             os.path.getmtime(s) for s in (*srcs, *headers)):
         return so
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(os.path.dirname(so), exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
+    with _builds_lock:
+        builds += 1
     r = subprocess.run([compiler, *flags, "-o", tmp, *srcs],
                        capture_output=True, text=True)
     if r.returncode != 0:

@@ -9,9 +9,26 @@ Tests pass ``cpu``.
 Each hand-written kernel's wrapper keeps a plain integer that it adds
 one to where it launches its kernel, and nowhere else;
 ``launch_counts`` reads them all and ``reset_launch_counts`` zeroes them.
+
+SKA_DISPATCH_STATS=1 (the counterpart of ska_tpu/jaxinit.py's switch)
+prints one stderr line when the process exits:
+
+    SKA_DISPATCH_STATS {"kernel_launches": N, "launches": {...}, "kernel_builds": B}
+
+``launches`` is ``launch_counts()`` at exit and ``kernel_launches`` their
+sum: the hand-written kernels' launches, the port's counterpart of the
+JAX package's jit dispatches (a torch op launches kernels of its own,
+which nothing here counts). ``kernel_builds`` is the compiler runs that
+``kernels`` made in this process, nvcc and g++ together, the counterpart
+of its backend compiles. Every compute module imports this one, so the
+CLI, webapi and graft_entry all report it; scripts/bench_cmds.py's
+``_STATS_RE`` reads the line.
 """
 
+import atexit
+import json
 import os
+import sys
 
 import torch
 
@@ -43,3 +60,17 @@ def reset_launch_counts():
 
     sort.radix_launches = 0
     lookup.lower_bound_launches = 0
+
+
+def _print_dispatch_stats():
+    """The SKA_DISPATCH_STATS line of this process, on stderr."""
+    from . import kernels
+
+    launches = launch_counts()
+    stats = {"kernel_launches": sum(launches.values()), "launches": launches,
+             "kernel_builds": kernels.builds}
+    print("SKA_DISPATCH_STATS " + json.dumps(stats), file=sys.stderr)
+
+
+if os.environ.get("SKA_DISPATCH_STATS"):
+    atexit.register(_print_dispatch_stats)

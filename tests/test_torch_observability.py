@@ -1,0 +1,285 @@
+"""The port's two observability switches on the CPU, the counterparts of
+the JAX CLI's (ska_tpu/cli.py SKA_PROFILE, ska_tpu/jaxinit.py
+SKA_DISPATCH_STATS):
+
+- SKA_PROFILE=<dir>: `python -m ska_tpu_torch <cmd>` writes one Chrome
+  trace a process, `rank<r>.<ns>.pt.trace.json`, that holds the
+  command's `ska::` spans (or its `aten::` operators where it has no
+  span), and writes the same output bytes as without the switch; without
+  it torch.profiler is never entered. In a gloo group of two ranks each
+  rank writes its own, a rank with nothing to do too.
+- SKA_DISPATCH_STATS=1: one stderr line at exit that
+  scripts/bench_cmds.py's _STATS_RE reads, with the hand-written
+  kernels' launches (0 on the CPU) and the compiler runs of the process;
+  none and no exit hook without it. `kernels.builds` counts a compiler
+  run and no up-to-date library.
+"""
+
+import ctypes
+import glob
+import importlib.util
+import json
+import logging
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from ska_tpu_torch import api as tapi
+from ska_tpu_torch import cli, kernels
+from ska_tpu_torch.io import skf
+from ska_tpu_torch.sampletypes import QualOpts
+from test_torch_fastq import _genome, _read_pairs, _write_fastq
+from test_torch_parallel import _free_port, _wait_all
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ACGT = np.frombuffer(b"ACGT", np.uint8)
+TRACE_NAME = re.compile(r"^rank(\d+)\.\d+\.pt\.trace\.json$")
+
+
+def _stats_re():
+    """scripts/bench_cmds.py's _STATS_RE, read from the script itself."""
+    spec = importlib.util.spec_from_file_location(
+        "bench_cmds", os.path.join(REPO, "scripts", "bench_cmds.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod._STATS_RE
+
+
+@pytest.fixture(scope="module")
+def inputs(tmp_path_factory):
+    """A 4 kb reference, three samples with ~2% SNPs built at k=17 into
+    an .skf, and a FASTQ pair of the reference at 30x."""
+    d = tmp_path_factory.mktemp("obs")
+    rng = np.random.default_rng(12)
+    ref = _genome(rng, 4000)
+    (d / "ref.fa").write_bytes(b">ref\n" + ref.tobytes() + b"\n")
+    files = []
+    for i in range(3):
+        g = ref.copy()
+        snp = rng.random(len(g)) < 0.02
+        g[snp] = rng.choice(ACGT, size=int(snp.sum()))
+        (d / f"s{i}.fa").write_bytes(b">s\n" + g.tobytes() + b"\n")
+        files.append((f"s{i}", str(d / f"s{i}.fa"), None))
+    arr = tapi.build(files, 17, True, QualOpts(), device="cpu")
+    fwd, rev = _read_pairs(rng, ref, 4000 * 30 // 200, 100, repeat=0)
+    return {
+        "ref": str(d / "ref.fa"),
+        "samples": [f for _, f, _ in files],
+        "skf": skf.save(arr, str(d / "in")),
+        "fastq": (_write_fastq(d / "r_1.fastq", fwd),
+                  _write_fastq(d / "r_2.fastq", rev)),
+    }
+
+
+def _argv(cmd, inp, out):
+    o = os.path.join(out, "out")
+    return {
+        "build": ["build", "-k", "17", "-o", o, *inp["samples"]],
+        # FASTA files: align builds them first
+        "align": ["align", *inp["samples"], "-o", o],
+        "align_skf": ["align", inp["skf"], "-o", o],
+        "map": ["map", inp["ref"], inp["skf"], "-f", "vcf", "-o", o],
+        "distance": ["distance", inp["skf"], "-o", o],
+        "cov": ["cov", *inp["fastq"], "-k", "17"],
+        "weed": ["weed", inp["skf"], inp["ref"], "-o", o + ".skf"],
+        "nk": ["nk", inp["skf"]],
+    }[cmd]
+
+
+# the spans each command runs through (ref.py, sample.py, api.py, cli.py)
+SPANS = {
+    "build": {"ska::parse", "ska::device_pass", "ska::union", "ska::save"},
+    "map": {"ska::scan", "ska::lookup", "ska::vcf"},
+    "weed": {"ska::scan"},
+}
+
+
+def _run(cmd, inp, out, capsys):
+    """One in-process CLI run into the directory `out`: (stdout, {file:
+    bytes} of `out`)."""
+    os.makedirs(out)
+    capsys.readouterr()
+    cli.main(_argv(cmd, inp, str(out)) + ["--device", "cpu"])
+    files = {}
+    for name in sorted(os.listdir(out)):
+        with open(os.path.join(out, name), "rb") as f:
+            files[name] = f.read()
+    return capsys.readouterr().out, files
+
+
+def _trace_names(path):
+    with open(path) as f:
+        doc = json.load(f)
+    return {e.get("name", "") for e in doc["traceEvents"]}
+
+
+# commands that run no torch op: their trace holds no event of theirs
+NO_TORCH_OP = ("align_skf", "nk")
+
+
+@pytest.mark.parametrize("cmd", ["build", "align", "align_skf", "map",
+                                 "distance", "cov", "weed", "nk"])
+def test_profile_writes_one_trace(inputs, tmp_path, monkeypatch, capsys,
+                                  caplog, cmd):
+    """One parseable Chrome trace with the command's spans (its aten::
+    operators where it has none; only a file for nk and the align of an
+    .skf, which run no torch op), and the output bytes of the same
+    command untraced."""
+    monkeypatch.delenv("SKA_PROFILE", raising=False)
+    plain = _run(cmd, inp=inputs, out=tmp_path / "plain", capsys=capsys)
+    trace_dir = tmp_path / "trace"
+    monkeypatch.setenv("SKA_PROFILE", str(trace_dir))
+    caplog.set_level(logging.INFO, logger="ska_tpu_torch")
+    traced = _run(cmd, inp=inputs, out=tmp_path / "traced", capsys=capsys)
+    assert traced == plain
+    assert plain[0] or plain[1]
+    traces = os.listdir(trace_dir)
+    assert len(traces) == 1 and TRACE_NAME.match(traces[0]).group(1) == "0"
+    path = str(trace_dir / traces[0])
+    assert f"profiler trace written to {path}" in caplog.text
+    names = _trace_names(path)
+    if cmd in SPANS:
+        assert SPANS[cmd] <= names
+    elif cmd not in NO_TORCH_OP:
+        assert any(n.startswith("aten::") for n in names)
+
+
+def test_no_profiler_without_the_switch(inputs, tmp_path, monkeypatch, capsys):
+    """Without SKA_PROFILE the profiler is never entered and no trace
+    file appears."""
+    import torch.profiler
+
+    entered = []
+
+    def refuse(*a, **kw):
+        entered.append((a, kw))
+        raise AssertionError("torch.profiler.profile entered")
+
+    monkeypatch.delenv("SKA_PROFILE", raising=False)
+    monkeypatch.setattr(torch.profiler, "profile", refuse)
+    monkeypatch.chdir(tmp_path)
+    _, files = _run("build", inputs, tmp_path / "out", capsys)
+    assert list(files) == ["out.skf"] and not entered
+    assert not glob.glob(str(tmp_path / "**" / "*.json"), recursive=True)
+
+
+def _port(argv, **env):
+    """`python -m ska_tpu_torch <argv> --device cpu` in a process of its
+    own, with neither switch inherited."""
+    base = {k: v for k, v in os.environ.items()
+            if k not in ("SKA_DISPATCH_STATS", "SKA_PROFILE")}
+    return subprocess.run(
+        [sys.executable, "-m", "ska_tpu_torch", *argv, "--device", "cpu"],
+        env=dict(base, PYTHONPATH=REPO, **env), cwd=REPO,
+        capture_output=True, timeout=300)
+
+
+@pytest.mark.parametrize("switch", ["1", None])
+def test_dispatch_stats_line(inputs, tmp_path, switch):
+    """With SKA_DISPATCH_STATS=1 a build prints exactly one line that
+    bench_cmds.py's regex reads: no kernel launched on the CPU; without
+    it, no such line."""
+    env = {} if switch is None else {"SKA_DISPATCH_STATS": switch}
+    os.makedirs(tmp_path / "out")
+    r = _port(_argv("build", inputs, str(tmp_path / "out")), **env)
+    assert r.returncode == 0, r.stderr.decode()[-2000:]
+    stats_re = _stats_re()
+    lines = [ln for ln in r.stderr.splitlines() if stats_re.search(ln)]
+    if switch is None:
+        assert lines == [] and b"SKA_DISPATCH_STATS" not in r.stderr
+        return
+    assert len(lines) == 1
+    stats = json.loads(stats_re.search(lines[0]).group(1))
+    assert set(stats) == {"kernel_launches", "launches", "kernel_builds"}
+    assert stats["launches"] == {"radix_sort": 0, "lower_bound": 0}
+    assert stats["kernel_launches"] == 0
+    assert isinstance(stats["kernel_builds"], int) and stats["kernel_builds"] >= 0
+
+
+@pytest.mark.parametrize("switch", ["1", None])
+def test_dispatch_stats_hook_only_with_the_switch(switch):
+    """torchinit registers its exit hook when SKA_DISPATCH_STATS is set,
+    and no hook otherwise."""
+    code = (
+        "import atexit\n"
+        "hooks = []\n"
+        "atexit.register = lambda fn, *a, **kw: hooks.append(fn) or fn\n"
+        "import ska_tpu_torch.torchinit as t\n"
+        "print(sum(h is t._print_dispatch_stats for h in hooks))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    env.pop("SKA_DISPATCH_STATS", None)
+    if switch:
+        env["SKA_DISPATCH_STATS"] = switch
+    r = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.split() == ["1" if switch else "0"]
+    assert "SKA_DISPATCH_STATS" not in r.stderr
+
+
+def test_kernel_builds_counts_compiler_runs(tmp_path):
+    """A g++ source compiled through kernels._compile counts one build;
+    the second, up-to-date call none; a newer source one more."""
+    src = tmp_path / "probe.cpp"
+    src.write_text('extern "C" int ska_probe() { return 42; }\n')
+    so = str(tmp_path / "lib" / "libprobe.so")
+
+    def compile_():
+        before = kernels.builds
+        assert kernels._compile(kernels._gxx(), kernels.GXX_FLAGS,
+                                [str(src)], so) == so
+        return kernels.builds - before
+
+    assert compile_() == 1
+    assert ctypes.CDLL(so).ska_probe() == 42
+    assert compile_() == 0
+    t = os.path.getmtime(so) + 10
+    os.utime(src, (t, t))
+    assert compile_() == 1
+
+
+@pytest.fixture(scope="module")
+def group_traces(inputs, tmp_path_factory):
+    """`build` (collective, SKA_DISTRIBUTED=1) and `nk` (rank 0 alone)
+    under SKA_PROFILE, each in a gloo group of two rank processes, all
+    four at once. Returns the directory: <cmd>/trace and <cmd>/out."""
+    d = tmp_path_factory.mktemp("group")
+    procs = []
+    for cmd in ("build", "nk"):
+        os.makedirs(d / cmd / "out")
+        env = dict(os.environ, PYTHONPATH=REPO, SKA_DISTRIBUTED="1",
+                   SKA_PROFILE=str(d / cmd / "trace"),
+                   SKA_COORDINATOR=f"localhost:{_free_port()}",
+                   SKA_NUM_PROCESSES="2", OMP_NUM_THREADS="1")
+        procs += [(f"{cmd} rank {r}", subprocess.Popen(
+            [sys.executable, "-m", "ska_tpu_torch",
+             *_argv(cmd, inputs, str(d / cmd / "out")), "--device", "cpu"],
+            env=dict(env, SKA_PROCESS_ID=str(r)), cwd=REPO,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE)) for r in range(2)]
+    failed = _wait_all(procs)
+    assert not failed, "\n".join(failed)
+    return d
+
+
+@pytest.mark.parametrize("cmd", ["build", "nk"])
+def test_profile_one_trace_per_rank(group_traces, cmd):
+    """Each rank of the group writes its own parseable trace, rank 1 of
+    `nk` (which has nothing to do) too; rank 0 alone writes the .skf."""
+    trace_dir = group_traces / cmd / "trace"
+    traces = sorted(os.listdir(trace_dir))
+    assert sorted(TRACE_NAME.match(t).group(1) for t in traces) == ["0", "1"]
+    for t in traces:
+        names = _trace_names(trace_dir / t)
+        if cmd == "build":
+            # every rank builds; rank 0 alone saves
+            rank0 = TRACE_NAME.match(t).group(1) == "0"
+            assert SPANS["build"] - {"ska::save"} <= names
+            assert ("ska::save" in names) == rank0
+    want = ["out.skf"] if cmd == "build" else []
+    assert os.listdir(group_traces / cmd / "out") == want
