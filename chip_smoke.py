@@ -2,11 +2,17 @@
 """Drive the PyTorch/CUDA port (ska_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0] [--dist-only]
+    python3 chip_smoke.py --lookup-only [--lookup-variants SRC]
 
 Run from the root of a checkout; it needs one CUDA card and refuses to
 run without one. --dist-only runs phase 1, builds what phase 9 compares
 with, phase 9 and graft_entry.dryrun_multichip on every card: for a
-machine of several cards. Twelve phases, and any
+machine of several cards. --lookup-only runs phase 1 and phase 2's
+lookup (the edge cases, map's shape, the sweep); --lookup-variants SRC
+adds an earlier splitter-window lookup kernel, the lower_bound.cu at
+SRC, as it is and forced to one block an SM, to the sweep and times all
+of them on the real table of phase 7 (a k=31 build of the cohort).
+Twelve phases, and any
 failure ends the run with a non-zero exit (nothing is caught, nothing
 moves to the CPU or to gloo):
 
@@ -36,16 +42,23 @@ moves to the CPU or to gloo):
    all-ones) in a sorted table of 2^23 unique 60-bit (W=1) or 124-bit
    (W=2) keys, and the edge cases (no keys, no queries, one key, runs of
    equal keys, a mostly all-ones table, W=2 keys whose first limbs tie,
-   tables of as many keys as the kernel holds splitters, one more and a
-   quarter more), every lower bound equal to the plain binary search's
-   (ops/keys.py searchsorted); at W=1 torch.searchsorted on the
-   sign-biased limb too, the library yardstick. Timed in turns beside
-   the plain search, the yardstick and the route the kernel replaced
-   (the radix kernel's limbs-only sort of [queries; table], then a
-   cumsum and a scatter), each call alone after an L2 flush; the kernel
-   and the yardstick also back to back and as device time (profiler);
-   with the bound (each key and query read once, each answer written
-   once).
+   and the plan's boundaries: as many keys as the splitters hold with no
+   level, one more and a quarter more, a ragged last line, and a table
+   viewed at an odd int64 offset), every lower bound equal to the plain
+   binary search's (ops/keys.py searchsorted); at W=1 torch.searchsorted
+   on the sign-biased limb too, the library yardstick. Timed in turns
+   beside the plain search, the yardstick and the route the kernel
+   replaced (the radix kernel's limbs-only sort of [queries; table],
+   then a cumsum and a scatter), each call alone after an L2 flush; the
+   kernel and the yardstick also back to back and as device time
+   (profiler); with the bound (each key and query read once, each answer
+   written once). Then the sweep: 2^21 queries in tables of 2^22,
+   4,500,000, 6,447,824, 2^23, 12,000,000 and 2^24 keys at W=1 and 2^22
+   and 2^23 at W=2, made on the card, answers equal to the plain
+   search's (and torch.searchsorted's), the kernel and at W=1 the
+   library timed in turns: per call after an L2 flush, device time,
+   back to back, and the card's and the host's time a call for calls
+   queued behind a sleep kernel.
 3. The main path: `ska build` of a cohort of 21 related 2 Mb genomes
    (S. pneumoniae size; each a 1.95 Mb chromosome plus a 50 kb plasmid
    with ~0.5% SNPs, short indels, an N run and IUPAC letters, made from
@@ -429,19 +442,24 @@ def lookup_case(W, seed):
 
 
 def lookup_edges(W, seed):
-    """The lookup's edge cases as (name, table, queries), numpy uint64
-    keys: no keys, no queries, one key, runs of equal keys, a table that
-    is mostly all-ones (a third of the queries all-ones), at W=2 runs of
-    tied first limbs, and tables of as many keys as the kernel holds
-    splitters, one more and a quarter more (one splitter a key, then
-    windows of one row and of two). Most queries lie just below, on or
-    just above a table key."""
+    """The lookup's edge cases as (name, table, queries, offset), numpy
+    uint64 keys: no keys, no queries, one key, runs of equal keys, a
+    table that is mostly all-ones (a third of the queries all-ones), at
+    W=2 runs of tied first limbs, and the plan's boundaries (ops/lookup.py
+    plan): as many keys as the splitters hold with no level (one
+    splitter a line), one more and a quarter more (a top of two lines),
+    a ragged last line in the first table with a level (N = R - 1 mod R,
+    R rows a line), and one more than the splitters hold at two lines
+    searched as a view at an odd int64 offset (`offset` 1: the
+    misaligned loads). Most queries lie just below, on or just above a
+    table key."""
     import numpy as np
 
-    from ska_tpu_torch.ops.lookup import SPLITTER_BYTES
+    from ska_tpu_torch.ops.lookup import SPLITTER_BYTES, line_rows
 
     rng = np.random.default_rng(seed)
-    most = SPLITTER_BYTES // (8 * W)
+    R = line_rows(W)
+    full = SPLITTER_BYTES // (8 * W) * R  # keys the splitters hold, no level
 
     def rand(n):
         return rng.integers(0, ALL_ONES, size=(n, W), dtype=np.uint64,
@@ -463,11 +481,11 @@ def lookup_edges(W, seed):
     q_mostly = near(mostly, 20000)
     q_mostly[::3] = ALL_ONES
     cases = [
-        ("no keys", rand(0), rand(1000)),
-        ("no queries", srt(rand(1000)), rand(0)),
-        ("one key", one, np.concatenate([near(one, 100), ones, 0 * ones])),
-        ("runs", runs, near(runs, 20000)),
-        ("mostly all-ones", mostly, q_mostly),
+        ("no keys", rand(0), rand(1000), 0),
+        ("no queries", srt(rand(1000)), rand(0), 0),
+        ("one key", one, np.concatenate([near(one, 100), ones, 0 * ones]), 0),
+        ("runs", runs, near(runs, 20000), 0),
+        ("mostly all-ones", mostly, q_mostly, 0),
     ]
     if W == 2:
         hi = rand(8)[:, 0]
@@ -478,12 +496,29 @@ def lookup_edges(W, seed):
         ties = srt(ties)
         q_ties = near(ties, 20000)
         q_ties[::7, 1] = rand(len(q_ties[::7]))[:, 0]
-        cases.append(("tied first limbs", ties, q_ties))
-    for n in (most, most + 1, most + most // 4):
+        cases.append(("tied first limbs", ties, q_ties, 0))
+    for n, what, offset in ((full, "splitters full", 0),
+                            (full + 1, "one more", 0),
+                            (full + full // 4, "a quarter more", 0),
+                            (2 * full + R - 1, "ragged last line", 0),
+                            (2 * full + 1, "view at an odd int64 offset", 1)):
         t = srt(rand(n))
-        cases.append((f"{n} keys", t, np.concatenate([near(t, 5000),
-                                                      rand(1000)])))
+        cases.append((f"{n} keys, {what}", t,
+                      np.concatenate([near(t, 5000), rand(1000)]), offset))
     return cases
+
+
+def card_view(torch, TK, keys, offset, dev):
+    """numpy uint64 keys on the card, as a view `offset` int64 words into
+    a buffer of its own (0: the tensor itself)."""
+    t = TK.from_numpy_keys(keys, dev)
+    if not offset:
+        return t
+    flat = torch.empty(t.numel() + offset, dtype=torch.int64, device=dev)
+    flat[offset:] = t.reshape(-1)
+    view = flat[offset:].view(t.shape)
+    check(view.data_ptr() % 16 == 8 * (offset % 2), "the view's alignment")
+    return view
 
 
 def old_lookup(torch, SO, table, queries):
@@ -525,8 +560,8 @@ def phase_lookup(torch, SO, LU, TK, W, seed, dev):
     the route it replaced."""
     err = 0
     edges = lookup_edges(W, seed + 40 + W)
-    for name, t_np, q_np in edges:
-        t = TK.from_numpy_keys(t_np, dev)
+    for name, t_np, q_np, offset in edges:
+        t = card_view(torch, TK, t_np, offset, dev)
         q = TK.from_numpy_keys(q_np, dev)
         got, want = TK.lower_bound(t, q), TK.searchsorted(t, q)
         check(got.shape == want.shape, f"lookup W={W} [{name}]: shape")
@@ -535,7 +570,7 @@ def phase_lookup(torch, SO, LU, TK, W, seed, dev):
               f"differ from the plain binary search's by up to {e}")
         err = max(err, e)
     log(f"phase 2: lookup kernel W={W}: {len(edges)} edge cases "
-        f"({', '.join(n for n, *_ in edges)}) equal to the plain binary "
+        f"({'; '.join(n for n, *_ in edges)}) equal to the plain binary "
         f"search")
 
     table_np, q_np = lookup_case(W, seed + 30 + W)
@@ -551,7 +586,7 @@ def phase_lookup(torch, SO, LU, TK, W, seed, dev):
           f"plain binary search's by up to {e}")
     err = max(err, e)
     check(per_lookup == 2, f"lookup W={W}: {per_lookup} launches per lookup, "
-          "expected 2 (splitters, search)")
+          "expected 2 (levels, search)")
     ones = (queries == -1).all(dim=1)
     check(bool((lb[ones] == N - 1).all()), "all-ones queries find the last key")
     hits = float(TK.equal(table[lb.clamp(0, N - 1)], queries).float().mean())
@@ -628,6 +663,271 @@ def phase_lookup(torch, SO, LU, TK, W, seed, dev):
     del table, queries, biased, lb, want
     torch.cuda.empty_cache()
     return res
+
+
+def sweep_case(torch, TK, W, N, seed, dev):
+    """A sorted table of N unique keys and 2^LOOKUP_QUERY_LOG2 queries,
+    made on the card: 60-bit keys at W=1; at W=2 60-bit first limbs
+    shared by about 8 rows each and random second limbs. 95% of the
+    queries are table keys, 5% random keys of the same kind."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    M = 1 << LOOKUP_QUERY_LOG2
+    extra = N + N // 16
+
+    def rand(n, bits):
+        hi = torch.randint(0, 1 << 31, (n,), generator=g, device=dev)
+        lo = torch.randint(0, 1 << 32, (n,), generator=g, device=dev)
+        x = (hi << 32) | lo
+        return x >> (63 - bits) if bits == 60 else x ^ torch.randint(
+            0, 2, (n,), generator=g, device=dev) << 63
+
+    if W == 1:
+        keys = torch.unique(rand(extra, 60))
+        keys = keys[torch.randperm(len(keys), generator=g, device=dev)[:N]
+                    .sort().values][:, None]
+    else:
+        pool = rand(extra // 8, 60)
+        hi = pool[torch.randint(0, len(pool), (extra,), generator=g,
+                                device=dev)]
+        lo = rand(extra, 64)
+        order = torch.sort(lo ^ TK.SIGN, stable=True).indices
+        order = order[torch.sort(hi[order], stable=True).indices]
+        keys = torch.stack([hi[order], lo[order]], dim=-1)
+        fresh = torch.ones(len(keys), dtype=torch.bool, device=dev)
+        fresh[1:] = (keys[1:] != keys[:-1]).any(dim=1)
+        keys = keys[fresh]
+        keys = keys[torch.randperm(len(keys), generator=g, device=dev)[:N]
+                    .sort().values]
+    check(len(keys) == N, f"sweep W={W}: {len(keys)} unique keys, not {N}")
+    queries = keys[torch.randint(0, N, (M,), generator=g, device=dev)]
+    absent = torch.rand(M, generator=g, device=dev) < 0.05
+    queries[absent, 0] = rand(int(absent.sum()), 60)
+    return keys.contiguous(), queries.contiguous()
+
+
+# the table sizes of the sweep, 2^21 queries each: W=1 across the plan's
+# steps and the band of 4.2-7.3 M keys where the splitter-window design
+# ran two blocks an SM, k31.skf's size among them; W=2 at 2^22 and 2^23
+SWEEP = ((1, 1 << 22), (1, 4_500_000), (1, 6_447_824), (1, 1 << 23),
+         (1, 12_000_000), (1, 1 << 24), (2, 1 << 22), (2, 1 << 23))
+
+
+def queued_ms(torch, fn, calls=5, reps=3):
+    """The card's ms a call, and the host's, for `calls` calls enqueued
+    behind a ~5 ms sleep kernel: the events around the calls time the
+    card alone (its kernels and the gaps between them, no host gap),
+    and the host's clock times the enqueueing (median of `reps`)."""
+    card, host = [], []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(10_000_000)
+        a.record()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        host.append((time.perf_counter() - t0) * 1e3 / calls)
+        b.record()
+        torch.cuda.synchronize()
+        card.append(a.elapsed_time(b) / calls)
+    return statistics.median(card), statistics.median(host)
+
+
+def time_lookups(torch, fns, flush, reps=3):
+    """Each of fns (name -> call) timed in turns on one card: per call
+    alone after an L2 flush (median of 2 * reps), device time of one call
+    (profiler; None where it saw no kernel), back to back, and queued_ms's
+    card and host times: {name: {"ms", "device_ms", "back_to_back_ms",
+    "queued_ms", "host_ms", "runs"}}."""
+    runs = {name: [] for name in fns}
+    for _ in range(reps):
+        for name, fn in fns.items():
+            runs[name] += cold_ms(torch, fn, 2, flush)
+    out = {}
+    for name, fn in fns.items():
+        queued, host = queued_ms(torch, fn)
+        out[name] = {
+            "ms": statistics.median(runs[name]),
+            "device_ms": (device_ms(kernel_split(torch, fn))
+                          or device_total_ms(torch, fn)),
+            "back_to_back_ms": back_to_back(torch, fn),
+            "queued_ms": queued,
+            "host_ms": host,
+            "runs": [round(x, 4) for x in runs[name]],
+        }
+    return out
+
+
+def times_text(times):
+    return "; ".join(
+        f"{name} {t['ms']:.4f} ms a call after an L2 flush, device "
+        f"{ms_text(t['device_ms'])}, back to back {t['back_to_back_ms']:.4f} "
+        f"ms, queued {t['queued_ms']:.4f} ms (host {t['host_ms']:.4f} ms a "
+        f"call; runs {t['runs']})" for name, t in times.items())
+
+
+def lookup_sweep(torch, TK, dev, seed, variants=None, cases=SWEEP):
+    """The lookup kernel across table sizes: answers equal to the plain
+    binary search's (and at W=1 to torch.searchsorted's), then the kernel
+    (and at W=1 the library) timed in turns as time_lookups does, beside
+    the bound. `variants` (name -> fn(table, queries)) are timed and
+    checked beside them."""
+    from ska_tpu_torch.ops.lookup import plan
+
+    flush = torch.empty(1 << 27, dtype=torch.uint8, device=dev)
+    out = []
+    for W, N in cases:
+        table, queries = sweep_case(torch, TK, W, N, seed + N + W, dev)
+        M = queries.shape[0]
+        fns = {"kernel": lambda: TK.lower_bound(table, queries)}
+        if W == 1:
+            biased = (table[:, 0] ^ TK.SIGN, queries[:, 0] ^ TK.SIGN)
+            fns["library"] = lambda: torch.searchsorted(*biased)
+        for name, fn in (variants or {}).items():
+            fns[name] = lambda fn=fn: fn(table, queries)
+        want = TK.searchsorted(table, queries)
+        for name, fn in fns.items():
+            check(torch.equal(fn(), want), f"sweep W={W} N={N}: {name}'s "
+                  "lower bounds differ from the plain binary search's")
+        times = time_lookups(torch, fns, flush)
+        bound, bound_by = lookup_bound(W, N, M)
+        p = plan(N, W)
+        out.append({"W": W, "N": N, "M": M, "bound_ms": bound,
+                    "bound_by": bound_by, "levels": p.levels,
+                    "top_lines": 1 << p.log_lines, "splitters": p.splitters,
+                    **times})
+        log(f"phase 2: lookup sweep W={W}, {M} queries in {N} keys (plan: "
+            f"{p.splitters} splitters, {p.levels} levels, top "
+            f"{1 << p.log_lines} lines): bound {bound:.4f} ms by {bound_by}; "
+            + times_text(times) + "; answers equal")
+        del table, queries, fns, want
+        torch.cuda.empty_cache()
+    del flush
+    return out
+
+
+# (b): the splitter-window design forced to one block an SM, with the
+# carveout that holds its splitters
+ONE_BLOCK_FROM = "  long long blocks = (long long)(per_sm > 0 ? per_sm : 1) * sms;\n"
+ONE_BLOCK_TO = (
+    "  cudaFuncSetAttribute(kernel, "
+    "cudaFuncAttributePreferredSharedMemoryCarveout,\n"
+    "                       (smem + 1024) * 100 / (228 * 1024) + 1);\n"
+    "  long long blocks = (long long)sms;\n")
+
+
+def window_variants(torch, src):
+    """The lookup's splitter-window design (a lower_bound.cu whose
+    search lifts over shared-memory splitters, then over a window of
+    8-byte table loads; its entry points ska_lower_bound_splitters and
+    ska_lower_bound_search) from the source file `src`, built twice with
+    nvcc: as it is, where the occupancy API picks the blocks an SM
+    ("window"), and forced to one block an SM ("window_one_block").
+    Returns name -> fn(table, queries) with that design's wrapper."""
+    import ctypes
+
+    from ska_tpu_torch import kernels
+
+    with open(src) as f:
+        text = f.read()
+    check(text.count(ONE_BLOCK_FROM) == 1,
+          f"{src}: not the splitter-window source")
+    d = os.path.join(WORK, "variants")
+    os.makedirs(d, exist_ok=True)
+    srcs = {"window": text, "window_one_block": text.replace(ONE_BLOCK_FROM,
+                                                             ONE_BLOCK_TO)}
+    fns = {}
+    for name, code in srcs.items():
+        cu = os.path.join(d, f"{name}.cu")
+        with open(cu, "w") as f:
+            f.write(code)
+        so = kernels._compile(kernels._nvcc(), kernels.NVCC_FLAGS, [cu],
+                              os.path.join(d, f"lib{name}.so"))
+        with open(so + ".log") as f:
+            log(f"window variant {name}: " + f.read().strip())
+        lib = ctypes.CDLL(so)
+        p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.ska_lower_bound_splitters.argtypes = [i32, p, i32, i32, p, p]
+        lib.ska_lower_bound_search.argtypes = [i32, p, i64, p, i32, i32, p,
+                                               i64, p, p]
+
+        def run(table, queries, lib=lib):
+            (n, W), m = table.shape, queries.shape[0]
+            most = (1 << 17) // (8 * W)
+            s = max(0, (n - 1).bit_length() - (most.bit_length() - 1))
+            n_split = (n + (1 << s) - 1) >> s
+            splitters = torch.empty((n_split, W), dtype=torch.int64,
+                                    device=table.device)
+            out = torch.empty(m, dtype=torch.int64, device=table.device)
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.ska_lower_bound_splitters(
+                W, table.data_ptr(), s, n_split, splitters.data_ptr(),
+                stream) if n_split else 0
+            err = err or lib.ska_lower_bound_search(
+                W, table.data_ptr(), n, splitters.data_ptr(), n_split, s,
+                queries.data_ptr(), m, out.data_ptr(), stream)
+            check(err == 0, f"window variant: CUDA error {err}")
+            return out
+
+        fns[name] = run
+    return fns
+
+
+def real_table_variants(torch, cli, TK, variants, seed):
+    """The map's real table (phase 3's k31.skf of the cohort made from
+    `seed`, built here, and genome00.fa's split k-mers, W=1): the lookup
+    kernel, torch.searchsorted and `variants`, answers equal, timed in
+    turns as time_lookups does."""
+    from ska_tpu_torch import ref as R
+    from ska_tpu_torch.io import skf
+
+    cohort = make_cohort(GENOMES, seed)
+    out = os.path.join(WORK, "k31")
+    cli.main(["build", "-k", "31", "-o", out, "--device", DEVICE,
+              *[p for p, _ in cohort]])
+    arr = skf.load(out + ".skf")
+    kmers = R.RefSka(31, cohort[0][0], arr.rc, False, False,
+                     device=DEVICE).kmers
+    table = TK.from_numpy_keys(arr.sorted_view()[0], DEVICE)
+    queries = TK.from_numpy_keys(kmers, DEVICE)
+    (N, W), M = table.shape, queries.shape[0]
+    biased = (table[:, 0] ^ TK.SIGN, queries[:, 0] ^ TK.SIGN)
+    fns = {"kernel": lambda: TK.lower_bound(table, queries),
+           "library": lambda: torch.searchsorted(*biased)}
+    for name, fn in variants.items():
+        fns[name] = lambda fn=fn: fn(table, queries)
+    want = TK.searchsorted(table, queries)
+    for name, fn in fns.items():
+        check(torch.equal(fn(), want), f"real table: {name} differs")
+    flush = torch.empty(1 << 27, dtype=torch.uint8, device=DEVICE)
+    times = time_lookups(torch, fns, flush)
+    bound, bound_by = lookup_bound(W, N, M)
+    log(f"lookup variants on the real table, {M} queries in {N} keys, W=1: "
+        f"bound {bound:.4f} ms by {bound_by}; " + times_text(times)
+        + "; answers equal")
+    return {"N": N, "M": M, "bound_ms": bound, **times}
+
+
+def lookup_only(torch, TK, LU, SO, cli, dev, args, smi):
+    """--lookup-only: phase 2's lookup (edge cases, map's shape, the
+    sweep); with --lookup-variants SRC also the splitter-window design
+    from SRC, as it is and at one block an SM, in the sweep and on the
+    real table."""
+    res = {W: phase_lookup(torch, SO, LU, TK, W, args.seed, dev)
+           for W in (1, 2)}
+    variants = (window_variants(torch, args.lookup_variants)
+                if args.lookup_variants else {})
+    sweep = lookup_sweep(torch, TK, dev, args.seed, variants)
+    real = (real_table_variants(torch, cli, TK, variants, args.seed)
+            if variants else None)
+    print(smi)
+    print(json.dumps({"lookup": res, "sweep": sweep, "real_table": real}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
 
 
 def cold_ms(torch, fn, reps, flush):
@@ -1249,6 +1549,10 @@ def real_table_lookup(torch, sorted_keys, kmers):
         "bound_ms": bound,
         "bound_by": bound_by,
     }
+    # the card's time without host gaps, and the host's, where the
+    # profiler sees no kernel
+    res["queued_ms"], res["host_ms"] = queued_ms(torch, kernel)
+    res["library_queued_ms"], res["library_host_ms"] = queued_ms(torch, library)
     # the same shape on uniform keys and queries in random order, to tell
     # the table's size from its data
     g = torch.Generator(device=DEVICE).manual_seed(7)
@@ -1272,7 +1576,10 @@ def real_table_lookup(torch, sorted_keys, kmers):
         f"torch.searchsorted {res['library_ms']:.3f} ms (runs "
         f"{[round(x, 3) for x in lib]}), device "
         f"{ms_text(res['library_device_ms'])}, back to back "
-        f"{res['library_back_to_back_ms']:.3f} ms; bound {bound:.3f} ms by "
+        f"{res['library_back_to_back_ms']:.3f} ms; queued behind a sleep "
+        f"kernel {res['queued_ms']:.4f} ms a call (host {res['host_ms']:.4f} "
+        f"ms), library {res['library_queued_ms']:.4f} ms (host "
+        f"{res['library_host_ms']:.4f} ms); bound {bound:.3f} ms by "
         f"{bound_by}; answers equal. The same shape on uniform random keys "
         f"and queries, back to back: lookup kernel "
         f"{res['uniform_back_to_back_ms']:.3f} ms, library "
@@ -1636,7 +1943,7 @@ def phase_dist(torch, torchinit, grams):
     for tag, what, names in (
             ("k31", "radix", ("histogram_kernel", "scatter_kernel")),
             ("k63", "radix", ("histogram_kernel", "scatter_kernel")),
-            ("lookup", "lookup", ("splitter_kernel", "search_kernel"))):
+            ("lookup", "lookup", ("levels_kernel", "search_kernel"))):
         prof, calls = profs[f"profile {tag}"]
         spans, kernels = profile_events(prof)
         ms = sum(t for name, (_, t) in kernels.items()
@@ -2142,7 +2449,7 @@ def phase_webapi(torch, torchinit, cohort):
                     if any(n in name for n in names)) / 1e3
         for kernel, names in (
             ("radix_sort", ("histogram_kernel", "scatter_kernel")),
-            ("lower_bound", ("splitter_kernel", "search_kernel")))}
+            ("lower_bound", ("levels_kernel", "search_kernel")))}
     log(f"phase 11 [SkaData k31 / map genome01, profiled]: {wall:.3f} s wall; "
         f"device time {', '.join(f'{k} {v:.3f} ms' for k, v in map_ms.items())}"
         f"; the radix sorts' bound {map_bound:.3f} ms")
@@ -2210,7 +2517,7 @@ def dryrun(torch, graft_entry, world):
 
 # the hand-written kernels' device functions, by the counter they count in
 KERNEL_NAMES = {"radix_sort": ("histogram_kernel", "scatter_kernel"),
-                "lower_bound": ("splitter_kernel", "search_kernel")}
+                "lower_bound": ("levels_kernel", "search_kernel")}
 # Chrome-trace categories of the card's work and of the CUDA runtime
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset", "cuda_runtime",
                "cuda_driver")
@@ -2337,6 +2644,14 @@ def phase_observe(cohort, build63):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--lookup-only", action="store_true",
+                    help="phase 1 and phase 2's lookup alone: edge cases, "
+                    "map's shape and the table-size sweep")
+    ap.add_argument("--lookup-variants", metavar="SRC", default=None,
+                    help="with --lookup-only: also time the splitter-window "
+                    "design of the lookup from the lower_bound.cu at SRC, as "
+                    "it is and at one block an SM, in the sweep and on the "
+                    "real table (a k=31 build of the cohort)")
     ap.add_argument("--dist-only", action="store_true",
                     help="phase 1, the .skf files and Grams that phase 9 "
                     "compares with, and phase 9 (for a machine of several "
@@ -2383,6 +2698,8 @@ def main():
 
     if args.dist_only:
         return dist_only(torch, cli, torchinit, args.seed, smi)
+    if args.lookup_only:
+        return lookup_only(torch, TK, LU, SO, cli, dev, args, smi)
 
     # phase 2: each kernel against its plain version at the main path's shapes
     sort_res = {W: phase_sort(torch, SO, W, args.seed, dev) for W in (1, 2)}
@@ -2394,6 +2711,9 @@ def main():
     # map's lookup: 2^21 reference split k-mers in 2^23 keys
     lookup_res = {W: phase_lookup(torch, SO, LU, TK, W, args.seed, dev)
                   for W in (1, 2)}
+    t0 = time.perf_counter()
+    sweep = lookup_sweep(torch, TK, dev, args.seed)
+    log(f"phase 2: lookup sweep in {time.perf_counter() - t0:.1f} s")
 
     # phase 3: the main path
     t0 = time.perf_counter()
@@ -2534,9 +2854,12 @@ def main():
         "real_table_library_device_ms": real_lookup["library_device_ms"],
         "real_table_library_back_to_back_ms":
             real_lookup["library_back_to_back_ms"],
+        "real_table_queued_ms": real_lookup["queued_ms"],
+        "real_table_library_queued_ms": real_lookup["library_queued_ms"],
         "uniform_table_back_to_back_ms": real_lookup["uniform_back_to_back_ms"],
         "uniform_table_library_back_to_back_ms":
             real_lookup["uniform_library_back_to_back_ms"],
+        "sweep": sweep,
     }]}
     print(smi)
     print(json.dumps(kernels_line))

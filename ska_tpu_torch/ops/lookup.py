@@ -4,25 +4,88 @@ routes to it).
 
 The kernel takes an (N, W) int64 table whose rows are sorted as unsigned
 words, first limb most significant, and (M, W) int64 queries, W = 1 or 2,
-both contiguous on one CUDA device, and writes each query's lower bound
-in [0, N] as int64: np.searchsorted(side="left"). Two launches a lookup:
-the splitter copy (every 2^s-th table row, at most SPLITTER_BYTES of
-them) and the search. The wrapper checks the operands and raises on
-anything else; nothing here routes to another version.
+both contiguous on one CUDA device (the table may be a view at any int64
+offset), and writes each query's lower bound in [0, N] as int64:
+np.searchsorted(side="left").
+
+It searches a B-tree of 128-byte lines built for each lookup: level l is
+the table's rows 0, R^l, 2 R^l, ... (R = 16 rows a line at W=1, 8 at
+W=2), level 0 the table, and the splitters above the top level L, every
+2^shift-th row, live in shared memory. ``plan`` fixes L and the top
+level's width (one or two lines) from N; a query then makes a binary
+lifting over the splitters and reads one line a level below them (two at
+the top when the plan says so), 2 or 3 dependent round trips at map's
+shapes. Two launches a lookup, back to back on the current stream: the
+levels (splitters included), then the search. The launch plan is the
+same for every N: 1024 threads a block, one block an SM, the shared
+memory limit and carveout set once a device (``_prepare``). The wrapper
+checks the operands and raises on anything else; nothing here routes to
+another version.
 """
+
+import contextlib
+import functools
+from typing import NamedTuple
 
 import torch
 
 from .. import kernels
 
-# CUDA launches of the lookup kernels, the splitter copy and the search
-# together (2 for one lookup in a table of more than one row)
+# CUDA launches of the lookup kernels, the levels and the search together
+# (2 for one lookup in a table of at least one row)
 lower_bound_launches = 0
 
 SPLITTER_BYTES = 1 << 17  # splitters' shared memory (csrc kSplitterBytes)
+LINE_BYTES = 128  # one node of the levels (csrc kLineBytes)
+THREADS = 1024  # search threads a block, one block an SM (csrc kThreads)
 # the kernel addresses rows by int64 element offsets, row * W + limb
 MAX_ROWS = 1 << 62
 _LIB = None
+_SMS = {}  # CUDA device index -> its SMs, once _prepare has run there
+
+
+class Plan(NamedTuple):
+    """Where a table of n rows is searched from: ``levels`` levels (L)
+    below ``splitters`` splitters, every 2^``shift``-th row, and a top
+    level 2^``log_lines`` lines wide; ``rows`` the rows of the buffer
+    that holds the splitters and levels L, ..., 1 (level l: the
+    ceil(n / R^l) rows 0, R^l, 2 R^l, ...), each padded to whole lines."""
+    levels: int
+    log_lines: int
+    shift: int
+    splitters: int
+    rows: int
+
+
+def line_rows(W: int) -> int:
+    """Rows of W limbs in a line of the levels."""
+    return LINE_BYTES // (8 * W)
+
+
+def plan(n: int, W: int) -> Plan:
+    """The least number of levels L, then the least top width f in
+    (1, 2) lines, that leave at most SPLITTER_BYTES of splitters, every
+    R^(L+1) * f-th row of n (R = line_rows(W))."""
+    return _plan(n, W, SPLITTER_BYTES, LINE_BYTES)
+
+
+# cached: the wrapper's host time is part of every lookup's
+@functools.lru_cache(maxsize=256)
+def _plan(n: int, W: int, splitter_bytes: int, line_bytes: int) -> Plan:
+    R = line_bytes // (8 * W)
+    r = R.bit_length() - 1
+    most = splitter_bytes // (8 * W)
+    pad = lambda x: -(-x // R) * R  # noqa: E731
+    levels = 0
+    while True:
+        for log_lines in (0, 1):
+            shift = r * (levels + 1) + log_lines
+            splitters = -(-n // (1 << shift))
+            if splitters <= most:
+                return Plan(levels, log_lines, shift, splitters, pad(
+                    splitters) + sum(pad(-(-n // (1 << (r * l))))
+                                     for l in range(1, levels + 1)))
+        levels += 1
 
 
 def _lib():
@@ -32,19 +95,34 @@ def _lib():
 
         lib = kernels.load("lower_bound")
         p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.ska_lower_bound_splitters.argtypes = [i32, p, i32, i32, p, p]
-        lib.ska_lower_bound_splitters.restype = i32
-        lib.ska_lower_bound_search.argtypes = [i32, p, i64, p, i32, i32, p,
-                                               i64, p, p]
-        lib.ska_lower_bound_search.restype = i32
-        lib.ska_lower_bound_splitter_bytes.argtypes = []
-        lib.ska_lower_bound_splitter_bytes.restype = i32
-        if lib.ska_lower_bound_splitter_bytes() != SPLITTER_BYTES:
-            raise RuntimeError(
-                f"lower_bound.cu holds {lib.ska_lower_bound_splitter_bytes()} "
-                f"bytes of splitters, the wrapper plans {SPLITTER_BYTES}")
+        lib.ska_lower_bound.argtypes = [i32, p, i64, p, i32, i32, i32, p,
+                                        i64, p, i32, p]
+        lib.ska_lower_bound.restype = i32
+        lib.ska_lower_bound_prepare.argtypes = []
+        lib.ska_lower_bound_prepare.restype = i32
+        for name, want in (("splitter_bytes", SPLITTER_BYTES),
+                           ("line_bytes", LINE_BYTES), ("threads", THREADS)):
+            fn = getattr(lib, f"ska_lower_bound_{name}")
+            fn.argtypes, fn.restype = [], i32
+            if fn() != want:
+                raise RuntimeError(f"lower_bound.cu has {name} {fn()}, the "
+                                   f"wrapper plans {want}")
         _LIB = lib
     return _LIB
+
+
+def _prepare(lib, index: int) -> int:
+    """The SM count of CUDA device `index` (current), after the kernels'
+    shared memory limit and carveout are set there: once a device."""
+    sms = _SMS.get(index)
+    if sms is None:
+        err = lib.ska_lower_bound_prepare()
+        if err:
+            raise RuntimeError(
+                f"lower bound kernel setup failed: CUDA error {err}")
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+        _SMS[index] = sms
+    return sms
 
 
 def check_operands(sorted_keys, queries) -> int:
@@ -77,15 +155,6 @@ def check_operands(sorted_keys, queries) -> int:
     return W
 
 
-def splitter_plan(n: int, W: int):
-    """(s, splitters) for a table of n rows of W limbs: the splitters are
-    rows 0, 2^s, 2*2^s, ... and s is the least that leaves at most
-    SPLITTER_BYTES of them."""
-    most = SPLITTER_BYTES // (8 * W)
-    s = max(0, (n - 1).bit_length() - (most.bit_length() - 1))
-    return s, (n + (1 << s) - 1) >> s
-
-
 def lower_bound(sorted_keys, queries):
     """Launch the kernel: int64 lower bounds of the queries, (M,)."""
     global lower_bound_launches
@@ -95,26 +164,17 @@ def lower_bound(sorted_keys, queries):
     out = torch.empty(m, dtype=torch.int64, device=dev)
     if m == 0:
         return out
-    log_stride, n_splitters = splitter_plan(n, W)
+    p = plan(n, W)
+    buf = torch.empty((p.rows, W), dtype=torch.int64, device=dev)
     lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        splitters = torch.empty((n_splitters, W), dtype=torch.int64,
-                                device=dev)
-        if n_splitters:
-            err = lib.ska_lower_bound_splitters(
-                W, sorted_keys.data_ptr(), log_stride, n_splitters,
-                splitters.data_ptr(), stream)
-            if err:
-                raise RuntimeError(
-                    f"lower bound splitter kernel launch failed: CUDA error "
-                    f"{err}")
-            lower_bound_launches += 1
-        err = lib.ska_lower_bound_search(
-            W, sorted_keys.data_ptr(), n, splitters.data_ptr(), n_splitters,
-            log_stride, queries.data_ptr(), m, out.data_ptr(), stream)
-        if err:
-            raise RuntimeError(
-                f"lower bound search kernel launch failed: CUDA error {err}")
-        lower_bound_launches += 1
+    with (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
+          else torch.cuda.device(dev)):
+        blocks = min(_prepare(lib, dev.index), -(-m // THREADS))
+        err = lib.ska_lower_bound(
+            W, sorted_keys.data_ptr(), n, buf.data_ptr(), p.levels,
+            p.log_lines, p.splitters, queries.data_ptr(), m, out.data_ptr(),
+            blocks, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"lower bound kernel launch failed: CUDA error {err}")
+    lower_bound_launches += 2 if n else 1
     return out

@@ -6,9 +6,14 @@
   empty table, no queries, more queries than keys and the other way
   round, runs of equal keys, all-ones keys and queries, one key, and W=2
   keys whose first limbs tie; a numpy emulation of the lookup kernel's
-  algorithm (csrc/lower_bound.cu: splitters, then the window) equals
-  np.searchsorted on the same cases; the kernel's wrapper refuses what
-  the kernel does not take without launching;
+  algorithm (csrc/lower_bound.cu: the plan, the splitters and levels,
+  the lifting over the splitters, then each level's lines read by teams
+  of lanes and counted from ballots) equals np.searchsorted on the same
+  cases and on ragged last lines, a table viewed at an odd int64
+  offset, W=2 runs of tied first limbs and queries outside the keys,
+  with shrunk and with full 128-byte lines; the plan at the kernel's
+  own sizes; the kernel's wrapper refuses what the kernel does not take
+  without loading, preparing or launching;
 - ref.RefSka lists the JAX RefSka's kmers, pos, chrom, krc and
   repeat_coors on a multi-record reference (an empty record, one shorter
   than k, an N run, IUPAC letters, repeats) at k=17 and k=41, on one
@@ -174,41 +179,192 @@ def _less(a, b):
     return lt
 
 
-def _emulate_lower_bound(table, queries):
-    """The lookup kernel's algorithm in numpy, step for step: the
-    wrapper's splitter plan, the lifting over the splitters, then the
-    lifting over the window of rows after the last splitter below."""
-    n = len(table)
-    s, n_split = LU.splitter_plan(n, table.shape[1])
-    split = table[(np.arange(n_split) << s)]
-    c = np.zeros(len(queries), np.int64)
-    step = 1 << (n_split.bit_length() - 1) if n_split else 0
+POP8 = np.array([bin(i).count("1") for i in range(256)])
+
+
+def _count_below(read, first, valid, q, lines, W):
+    """count_below of csrc/lower_bound.cu for every lane of every warp:
+    teams of LINE_BYTES / 16 lanes read 16 bytes each of the windows of
+    lanes rd * teams + team, round by round, and each lane counts its
+    team's bits in the ballot of its own round. read(idx) gives entries
+    of the level; entries a lane may not read are all-ones."""
+    R = LU.line_rows(W)
+    team = LU.LINE_BYTES // 16
+    teams, per = 32 // team, 2 // W
+    lane = np.arange(32)
+    F, V = first.reshape(-1, 32), valid.reshape(-1, 32)
+    Q = q.reshape(-1, 32, W)
+    shift_own = (lane % teams) * team
+    count = np.zeros_like(F)
+    for k in range(lines):
+        e0 = k * R + (lane % team) * per
+        for rd in range(team):
+            src = rd * teams + lane // team
+            f, avail, sq = F[:, src], V[:, src] - e0, Q[:, src]
+            for j in range(per):
+                ok = avail > j
+                key = np.full(sq.shape, ALL_ONES, np.uint64)
+                key[ok] = read((f + e0 + j)[ok])
+                ballot = (_less(key, sq).astype(np.int64) << lane).sum(axis=1)
+                n_below = POP8[(ballot[:, None] >> shift_own)
+                               & ((1 << team) - 1)]
+                count += np.where(lane // teams == rd, n_below, 0)
+    return count.ravel()
+
+
+def _emulate_lower_bound(flat, start, n, W, queries):
+    """The lookup kernel's algorithm in numpy, step for step: the table
+    is the n rows of W limbs from element `start` of the uint64 array
+    `flat`, read as the kernel reads a view (rows counted from its
+    start). The wrapper's plan; levels_kernel's splitters and levels in
+    one buffer of lines (its padding garbage); search_kernel's lifting
+    over the splitters in warps of 32 lanes, then count_below from the
+    top level (2^log_lines lines) down to the table's line."""
+    p = LU.plan(n, W)
+    R = LU.line_rows(W)
+    r = R.bit_length() - 1
+    pad = lambda x: -(-x // R) * R  # noqa: E731
+
+    def table(rows):
+        return flat[start + rows[..., None] * W + np.arange(W)]
+
+    rng = np.random.default_rng(n)
+    buf = rng.integers(0, 2**64 - 1, size=(p.rows, W), dtype=np.uint64,
+                       endpoint=True)
+    rows = np.arange(-(-n // R)) * R
+    keys = table(rows)
+    at = rows % (1 << p.shift) == 0
+    buf[rows[at] >> p.shift] = keys[at]
+    offs, off = {}, pad(p.splitters)
+    for l in range(p.levels, 0, -1):
+        at = rows % (1 << (r * l)) == 0
+        buf[off + (rows[at] >> (r * l))] = keys[at]
+        offs[l] = off
+        off += pad(-(-n // (1 << (r * l))))
+    assert off == p.rows
+
+    m = len(queries)
+    q = np.zeros((-(-m // 32) * 32, W), np.uint64)
+    q[:m] = queries
+    live = np.arange(len(q)) < m
+    split = buf[:p.splitters]
+    c = np.zeros(len(q), np.int64)
+    step = 1 << (p.splitters.bit_length() - 1) if p.splitters else 0
     while step:
         j = c + step
-        r = np.minimum(j, n_split) - 1
-        c = np.where((j <= n_split) & _less(split[r], queries), j, c)
+        s = np.minimum(j, p.splitters) - 1
+        c = np.where((j <= p.splitters) & _less(split[s], q), j, c)
         step >>= 1
-    lo = np.where(c > 0, (c - 1) << s, -1)
-    step = (1 << s) >> 1
-    while step:
-        j = lo + step
-        key = table[np.minimum(j, n - 1)]
-        lo = np.where((j < n) & _less(key, queries), j, lo)
-        step >>= 1
-    return lo + 1
+    searching = live & (c > 0)
+    row = np.where(searching, (c - 1) << p.shift, 0)
+    for l in range(p.levels, -1, -1):
+        s = r * l
+        first = row >> s
+        lines = 1 << p.log_lines if l == p.levels else 1
+        valid = np.where(searching,
+                         np.minimum(lines * R, -(-n // (1 << s)) - first), 0)
+        read = (lambda idx, o=offs.get(l): buf[o + idx]) if l else table
+        below = _count_below(read, first, valid, q, lines, W)
+        assert (below[searching] >= 1).all()
+        row = np.where(searching, row + ((below - 1) << s), row)
+    return np.where(searching, row + 1, 0)[:m]
 
 
-@pytest.mark.parametrize("W,N,M", LOOKUP_CASES)
+def _kernel_case(W, N, M):
+    """A case of the kernel's algorithm as (flat, start, n, queries):
+    LOOKUP_CASES, and the ones of KERNEL_CASES: a table as a view at an
+    odd int64 offset ("offset"), W=2 runs of tied first limbs across
+    level boundaries ("hi_runs"), queries below and above every key
+    ("outside")."""
+    if N not in ("offset", "hi_runs", "outside"):
+        table, queries = _case(W, N, M)
+        return table.reshape(-1), 0, len(table), queries
+    rng = np.random.default_rng(len(N) + 10 * W)
+    if N == "offset":
+        table, queries = _lookup_case(W, 700, 600, seed=11 + W)
+        flat = rng.integers(0, 2**64 - 1, size=table.size + 8,
+                            dtype=np.uint64, endpoint=True)
+        flat[3 : 3 + table.size] = table.reshape(-1)
+        return flat, 3, len(table), queries
+    if N == "hi_runs":  # ~37 rows a first limb; lines of 2-8 rows
+        hi = np.sort(rng.integers(0, 2**64 - 1, size=30, dtype=np.uint64,
+                                  endpoint=True))
+        table = _sorted(np.stack([rng.choice(hi, 1100), rng.integers(
+            0, 2**64 - 1, size=1100, dtype=np.uint64, endpoint=True)], -1))
+        table[500:540, 0] = table[500, 0]
+        table = _sorted(table)
+        queries = _near(table, rng, 600)
+        queries[::5, 1] = rng.integers(0, 2**64 - 1, size=len(queries[::5]),
+                                       dtype=np.uint64, endpoint=True)
+        queries[1::5, 1] = 0
+        queries[2::5, 1] = ALL_ONES
+        return table.reshape(-1), 0, len(table), queries
+    table = _sorted(rng.integers(1 << 20, 1 << 62, size=(800, W),
+                                 dtype=np.uint64))
+    lo, hi = table[0].copy(), table[-1].copy()
+    queries = np.stack([np.zeros(W, np.uint64), lo - np.uint64(1), lo,
+                        hi, hi + np.uint64(1), np.full(W, ALL_ONES)]
+                       * 50)
+    return table.reshape(-1), 0, len(table), queries
+
+
+# the ragged last lines: N = 1 and 15 (mod 16) at W=1, 1 and 7 (mod 8) at
+# W=2 (so also mod the shrunk lines' 4 and 2 rows)
+KERNEL_CASES = LOOKUP_CASES + (
+    [(1, 593, 700), (1, 607, 700), (2, 601, 700), (2, 607, 700)]
+    + [(W, kind, None) for W in (1, 2) for kind in ("offset", "outside")]
+    + [(2, "hi_runs", None)])
+
+
+def _check_kernel_algorithm(W, N, M, most):
+    flat, start, n, queries = _kernel_case(W, N, M)
+    p = LU.plan(n, W)
+    assert p.splitters <= most and (p.splitters << p.shift) >= n
+    table = flat[start : start + n * W].reshape(n, W)
+    assert np.array_equal(_emulate_lower_bound(flat, start, n, W, queries),
+                          _np_lower_bound(table, queries))
+    return p, n
+
+
+@pytest.mark.parametrize("W,N,M", KERNEL_CASES)
 def test_lower_bound_kernel_algorithm(W, N, M, monkeypatch):
     """With 64 bytes of splitters in place of 128 KiB (8 at W=1, 4 at
-    W=2), every case of more than 8 keys ends in windows of several
-    rows."""
+    W=2) and lines of 32 bytes (4 rows at W=1, 2 at W=2, teams of 2
+    lanes), every case of more than 64 keys (W=1) or 16 (W=2) searches
+    levels below the splitters, two lines wide at the top or one."""
     monkeypatch.setattr(LU, "SPLITTER_BYTES", 64)
-    table, queries = _case(W, N, M)
-    s, n_split = LU.splitter_plan(len(table), W)
-    assert n_split <= 8 // W and (n_split << s) >= len(table)
-    assert np.array_equal(_emulate_lower_bound(table, queries),
-                          _np_lower_bound(table, queries))
+    monkeypatch.setattr(LU, "LINE_BYTES", 32)
+    p, n = _check_kernel_algorithm(W, N, M, 8 // W)
+    assert (p.levels >= 1) == (n > 2 * (8 // W) * LU.line_rows(W))
+
+
+@pytest.mark.parametrize("W,N,M", KERNEL_CASES)
+def test_lower_bound_kernel_algorithm_full_lines(W, N, M, monkeypatch):
+    """The kernel's own 128-byte lines (16 rows at W=1, 8 at W=2, teams
+    of 8 lanes) with 64 bytes of splitters: tables of more than 256 keys
+    (W=1) or 64 (W=2) search levels below the splitters."""
+    monkeypatch.setattr(LU, "SPLITTER_BYTES", 64)
+    p, n = _check_kernel_algorithm(W, N, M, 8 // W)
+    assert (p.levels >= 1) == (n > 2 * (8 // W) * LU.line_rows(W))
+
+
+@pytest.mark.parametrize("n,W,want", [
+    (0, 1, (0, 0, 4, 0)), (1, 1, (0, 0, 4, 1)),
+    (1 << 18, 1, (0, 0, 4, 16384)), ((1 << 18) + 1, 1, (0, 1, 5, 8193)),
+    (6_447_824, 1, (1, 1, 9, 12594)), (1 << 23, 1, (1, 1, 9, 16384)),
+    ((1 << 23) + 1, 1, (2, 0, 12, 2049)), (1 << 24, 1, (2, 0, 12, 4096)),
+    (1 << 22, 2, (2, 0, 9, 8192)), (1 << 23, 2, (2, 1, 10, 8192)),
+])
+def test_lower_bound_plan(n, W, want):
+    """The plan at the kernel's own sizes: (levels, log_lines, shift,
+    splitters); the levels take every 16th row (W=1) or 8th (W=2), and
+    the buffer holds the splitters and levels in whole lines."""
+    p = LU.plan(n, W)
+    assert (p.levels, p.log_lines, p.shift, p.splitters) == want
+    R = LU.line_rows(W)
+    level_rows = [-(-n // R**l) for l in range(1, p.levels + 1)]
+    assert p.rows % R == 0 and p.rows >= p.splitters + sum(level_rows)
+    assert p.rows < p.splitters + sum(level_rows) + R * (p.levels + 1)
 
 
 def _bad_operands(kind):
@@ -238,7 +394,7 @@ def _bad_operands(kind):
 ])
 def test_lower_bound_wrapper_refuses(kind, error, match):
     """The kernel's wrapper raises on what the kernel does not take,
-    before it loads or launches anything."""
+    before it loads, prepares a device or launches anything."""
     keys, queries = _bad_operands(kind)
     before = LU.lower_bound_launches
     with pytest.raises(error, match=match):
@@ -246,6 +402,7 @@ def test_lower_bound_wrapper_refuses(kind, error, match):
     with pytest.raises(error, match=match):
         LU.lower_bound(keys, queries)
     assert LU.lower_bound_launches == before and LU._LIB is None
+    assert LU._SMS == {}
 
 
 # ------------------------------------------------------------ reference scan
