@@ -1,0 +1,7 @@
+"""device_idle_pct.map: the share of the traced window of the map cell in which
+no kernel, copy or fill ran on the card (100 less the union of their
+intervals), in %."""
+
+
+def read(trace, run):
+    return trace.idle_pct()

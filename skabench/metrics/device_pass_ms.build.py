@@ -1,0 +1,9 @@
+"""device_pass_ms.build: merged device pipeline (ops/pipeline.py over B1,
+ops/sort.py): self time of the span ska::device_pass, ms per job."""
+
+
+def read(trace, run):
+    names = ('ska::device_pass',)
+    if not trace.named(names) or not run["jobs"]:
+        return None
+    return 1e3 * trace.self_s(names) / run["jobs"]
