@@ -19,7 +19,8 @@ trace a process, ``<dir>/rank<r>.<ns>.pt.trace.json`` (r is the rank, 0
 without a group; TensorBoard's profiler plugin and Perfetto read it). It
 records CPU activity, and CUDA activity too where the command's device
 is a card; the host commands record CPU activity alone and resolve no
-device.
+device. The subcommand runs in the span ``ska::command``, around the
+spans of its steps.
 """
 
 import argparse
@@ -276,7 +277,17 @@ def _profiled(cmd, device):
 
 
 def _run(args, device) -> bool:
-    """Run the subcommand; False when this rank has nothing to do."""
+    """Run the subcommand in the span ``ska::command``, whose self time
+    is the command's work outside its steps' spans (argument handling,
+    checks, array construction, frees); False when this rank has nothing
+    to do."""
+    from torch.profiler import record_function
+
+    with record_function("ska::command"):
+        return _dispatch(args, device)
+
+
+def _dispatch(args, device) -> bool:
     from torch.profiler import record_function
 
     from . import api

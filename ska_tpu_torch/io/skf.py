@@ -10,6 +10,7 @@ as the JAX package's, so both packages write the same bytes.
 """
 
 import numpy as np
+from torch.profiler import record_function
 
 from ..array import SkaArray
 from ..ops import npkeys as K
@@ -26,9 +27,19 @@ def save(arr: SkaArray, path: str, add_suffix: bool = True):
 
 
 def load(path: str) -> SkaArray:
-    with open(path, "rb") as f:
-        raw = f.read()
-    obj = cbor.loads(snappy.frame_decompress(raw))
+    """The array of an .skf, in the span ``ska::load`` around its three
+    steps: ``ska::read`` (the file's bytes), ``ska::decompress`` (the
+    snappy frame) and ``ska::decode`` (the CBOR and the array views)."""
+    with record_function("ska::load"):
+        with record_function("ska::read"), open(path, "rb") as f:
+            raw = f.read()
+        with record_function("ska::decompress"):
+            data = snappy.frame_decompress(raw)
+        with record_function("ska::decode"):
+            return _decode(cbor.loads(data), path)
+
+
+def _decode(obj, path: str) -> SkaArray:
     if not isinstance(obj, dict) or "split_kmers" not in obj:
         raise ValueError(f"Could not read input file: {path}")
     k = obj["k"]

@@ -15,7 +15,8 @@ when a module is imported, and nothing here falls back to another
 route: a missing compiler or a failed build raises. Each build writes a
 file of its own and renames it into place, so concurrent processes
 (test workers) may race to build the same library. ``builds`` counts
-the compiler runs of this process (SKA_DISPATCH_STATS reports it).
+the compiler runs of this process (SKA_DISPATCH_STATS reports it), and
+each run is a ``ska::compile`` span in a profiler's trace.
 """
 
 import ctypes
@@ -64,7 +65,7 @@ def _gxx() -> str:
 def _compile(compiler: str, flags, srcs, so: str, headers=()) -> str:
     """Compile srcs into so unless it is newer than all of them and of
     the headers they include. The compiler's report is kept beside it as
-    <so>.log."""
+    <so>.log. The compiler's run is the span ``ska::compile``."""
     global builds
     if os.path.exists(so) and os.path.getmtime(so) >= max(
             os.path.getmtime(s) for s in (*srcs, *headers)):
@@ -73,8 +74,11 @@ def _compile(compiler: str, flags, srcs, so: str, headers=()) -> str:
     tmp = f"{so}.{os.getpid()}.tmp"
     with _builds_lock:
         builds += 1
-    r = subprocess.run([compiler, *flags, "-o", tmp, *srcs],
-                       capture_output=True, text=True)
+    from torch.profiler import record_function
+
+    with record_function("ska::compile"):
+        r = subprocess.run([compiler, *flags, "-o", tmp, *srcs],
+                           capture_output=True, text=True)
     if r.returncode != 0:
         raise RuntimeError(
             f"{os.path.basename(compiler)} failed on {srcs}:\n"

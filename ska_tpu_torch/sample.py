@@ -13,10 +13,12 @@ and chunks then run on the port's device pipelines (ops/pipeline.py).
 
 Each step runs inside a ``torch.profiler.record_function`` span named
 ``ska::<step>`` (parse, stage, to_device, device_pass, to_host; api.py
-adds union and cli.py save). The spans cost nothing measurable when no
-profiler runs; under one they give each step's host wall time beside
-the device's kernel time (chip_smoke.py, phase 4). Each span ends where
-the code already waits for the card, so the spans add no sync.
+adds union and cli.py save), in the merged build and the per-sample
+builds alike. The spans cost nothing measurable when no profiler runs;
+under one they give each step's host wall time beside the device's
+kernel time (chip_smoke.py, phase 4). Each device pass ends on a wait
+for its row counts, which the copies after it would wait for anyway,
+so the spans move no work.
 """
 
 import concurrent.futures as cf
@@ -130,7 +132,8 @@ def build_sample(name: str, k: int, files: Tuple[str, Optional[str]],
     """Build one sample's dictionary from FASTA or paired FASTQ input."""
     check_k(k)
     dev = get_device(device)
-    batch, is_reads = prepare_sample(files, proportion_reads)
+    with record_function("ska::parse"):
+        batch, is_reads = prepare_sample(files, proportion_reads)
     keys_np, sets_np = dict_from_batch(batch, k, rc, qual, is_reads, dev)
     if len(keys_np) == 0:
         raise ValueError(f"{files[0]} has no valid sequence")
@@ -175,17 +178,23 @@ def _run_batch(batches, Lp, k, rc, qual, is_reads, device):
     rows (batched_from_raw; the JAX package's branch to sample_from_raw
     for one sample is the same computation here)."""
     W = width_for_k(k)
-    staged = _stage_raw(batches, Lp, int(qual.min_qual))
+    with record_function("ska::stage"):
+        staged = _stage_raw(batches, Lp, int(qual.min_qual))
     use_mq, strict_valid = _gates(is_reads, staged[3], qual)
     cfg = (k, rc, W, is_reads, use_mq, int(qual.min_count), strict_valid,
            staged[3])
-    seqs, qual_bits, rec_ends = (torch.from_numpy(x).to(device)
-                                 for x in staged[:3])
-    sp, union, is_end, _ = P.batched_from_raw(seqs, qual_bits, rec_ends, *cfg)
-    sp_np = K.to_numpy_keys(sp)
-    union_np, end_np = union.cpu().numpy(), is_end.cpu().numpy()
-    return [P.unpack_host(sp_np[i], union_np[i], end_np[i], W)
-            for i in range(len(batches))]
+    with record_function("ska::to_device"):
+        seqs, qual_bits, rec_ends = (torch.from_numpy(x).to(device)
+                                     for x in staged[:3])
+    with record_function("ska::device_pass"):
+        sp, union, is_end, nu = P.batched_from_raw(seqs, qual_bits, rec_ends,
+                                                   *cfg)
+        nu.cpu()  # the copies below wait for the card anyway
+    with record_function("ska::to_host"):
+        sp_np = K.to_numpy_keys(sp)
+        union_np, end_np = union.cpu().numpy(), is_end.cpu().numpy()
+        return [P.unpack_host(sp_np[i], union_np[i], end_np[i], W)
+                for i in range(len(batches))]
 
 
 def dict_from_batch(batch: fastx.SeqBatch, k: int, rc: bool, qual: QualOpts,

@@ -21,8 +21,10 @@ JAX package's jit dispatches (a torch op launches kernels of its own,
 which nothing here counts). ``kernel_builds`` is the compiler runs that
 ``kernels`` made in this process, nvcc and g++ together, the counterpart
 of its backend compiles. Every compute module imports this one, so the
-CLI, webapi and graft_entry all report it; scripts/bench_cmds.py's
-``_STATS_RE`` reads the line.
+CLI, webapi and graft_entry all report it. The line has the form of the
+JAX package's, which scripts/bench_cmds.py's ``_STATS_RE`` matches, but
+that script runs the JAX CLI: the port's line is for whoever runs a
+command of the port.
 """
 
 import atexit

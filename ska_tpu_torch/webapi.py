@@ -36,6 +36,7 @@ import os
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+from torch.profiler import record_function
 
 from .array import _combine128
 from .constants import QUAL_NOFILTER
@@ -195,28 +196,32 @@ class SkaData:
         proportion_reads: Optional[float] = None,
     ) -> str:
         """Map one sample; returns the JSON document of lib.rs:1041-1098:
-        per-chromosome mapped sequences, variant count, coverage."""
-        name = os.path.basename(input_file)
-        # query dict with no count/quality filtering (ska_map.rs:47-51)
-        sd = build_sample(
-            name, self.k, (input_file, rev_reads), self.rc, _NOFILTER_QUAL,
-            proportion_reads, device=self.device,
-        )
-        self.reference.map(merge_samples([sd]))
-        self.n_maps += 1
-        whole = bytes(self.reference.pseudoalignment()[0]).decode()
+        per-chromosome mapped sequences, variant count, coverage. The
+        call runs in the span ``ska::call``, the merge in ``ska::merge``."""
+        with record_function("ska::call"):
+            name = os.path.basename(input_file)
+            # query dict with no count/quality filtering (ska_map.rs:47-51)
+            sd = build_sample(
+                name, self.k, (input_file, rev_reads), self.rc, _NOFILTER_QUAL,
+                proportion_reads, device=self.device,
+            )
+            with record_function("ska::merge"):
+                arr = merge_samples([sd])
+            self.reference.map(arr)
+            self.n_maps += 1
+            whole = bytes(self.reference.pseudoalignment()[0]).decode()
 
-        results = {}
-        chunks = []
-        cur = 0
-        for chrom in self.reference_string:
-            chunks.append(whole[cur : cur + len(chrom)])
-            cur += len(chrom)
-        results["Mapped sequences"] = chunks
-        results["Number of variants"] = int(len(self.reference.mapped_pos))
-        mapped = len(whole) - whole.count("-")
-        results["Coverage"] = mapped / len(whole) if whole else 0.0
-        return json.dumps(results)
+            results = {}
+            chunks = []
+            cur = 0
+            for chrom in self.reference_string:
+                chunks.append(whole[cur : cur + len(chrom)])
+                cur += len(chrom)
+            results["Mapped sequences"] = chunks
+            results["Number of variants"] = int(len(self.reference.mapped_pos))
+            mapped = len(whole) - whole.count("-")
+            results["Coverage"] = mapped / len(whole) if whole else 0.0
+            return json.dumps(results)
 
     def get_reference(self) -> str:
         """Reference chromosomes joined by newlines (lib.rs:1100-1103)."""
@@ -266,62 +271,65 @@ class AlignData:
         proportion_reads: Optional[float] = None,
     ) -> str:
         """Add files (pairing FASTQs by the digit heuristic), then return
-        the JSON document of lib.rs:1397-1444: newick, names, alignment."""
-        fastqs = [f for f in input_files if _file_kind(os.path.basename(f)) == "fastq"]
-        for f in input_files:
-            if _file_kind(os.path.basename(f)) != "fastq":
-                self._add(f)
+        the JSON document of lib.rs:1397-1444: newick, names, alignment.
+        The call runs in the span ``ska::call``."""
+        with record_function("ska::call"):
+            fastqs = [f for f in input_files
+                      if _file_kind(os.path.basename(f)) == "fastq"]
+            for f in input_files:
+                if _file_kind(os.path.basename(f)) != "fastq":
+                    self._add(f)
 
-        # pair FASTQs greedily by the same-sample name test (intent of
-        # lib.rs:1205-1384; see module docstring for the divergence note)
-        remaining = list(fastqs)
-        while remaining:
-            f1 = remaining.pop(0)
-            mate = None
-            for cand in remaining:
-                if _same_pair(os.path.basename(f1), os.path.basename(cand)):
-                    mate = cand
-                    break
-            if mate is not None:
-                remaining.remove(mate)
-                self._add(f1, mate)
-            else:
-                self._add(f1)
+            # pair FASTQs greedily by the same-sample name test (intent of
+            # lib.rs:1205-1384; see module docstring for the divergence note)
+            remaining = list(fastqs)
+            while remaining:
+                f1 = remaining.pop(0)
+                mate = None
+                for cand in remaining:
+                    if _same_pair(os.path.basename(f1), os.path.basename(cand)):
+                        mate = cand
+                        break
+                if mate is not None:
+                    remaining.remove(mate)
+                    self._add(f1, mate)
+                else:
+                    self._add(f1)
 
-        if len(self._inputs) <= 2:
-            # lib.rs:1386-1400
+            if len(self._inputs) <= 2:
+                # lib.rs:1386-1400
+                results = {}
+                results["newick"] = "Not enough sequences to align"
+                results["alignment"] = "Not enough sequences to align"
+                results["names"] = list(self.file_names)
+                return json.dumps(results)
+
+            if len(self._built) < len(self._inputs):
+                # build only this call's new files (proportion_reads applies
+                # to them alone, as in the reference where each align() call
+                # builds just the files it was handed)
+                self._built.extend(build_samples(
+                    self._inputs[len(self._built):], self.k, True,
+                    _NOFILTER_QUAL, proportion_reads, device=self.device,
+                ))
+            samples = self._built
+            buf = io.BytesIO()
+            merge_samples(samples).write_fasta(buf)  # unfiltered, lib.rs:1407-1421
+            alignment = buf.getvalue().decode()
+
+            m = len(samples)
+            dist = np.zeros((m, m), dtype=np.int64)
+            for i in range(m):
+                for j in range(i + 1, m):
+                    d = _pair_mismatches(samples[i], samples[j])
+                    dist[i, j] = dist[j, i] = d
+            clean = [_clean_name(n) for n in self.file_names]
+
             results = {}
-            results["newick"] = "Not enough sequences to align"
-            results["alignment"] = "Not enough sequences to align"
+            results["newick"] = neighbor_joining(dist, clean)
             results["names"] = list(self.file_names)
+            results["alignment"] = alignment
             return json.dumps(results)
-
-        if len(self._built) < len(self._inputs):
-            # build only this call's new files (proportion_reads applies
-            # to them alone, as in the reference where each align() call
-            # builds just the files it was handed)
-            self._built.extend(build_samples(
-                self._inputs[len(self._built):], self.k, True,
-                _NOFILTER_QUAL, proportion_reads, device=self.device,
-            ))
-        samples = self._built
-        buf = io.BytesIO()
-        merge_samples(samples).write_fasta(buf)  # unfiltered, lib.rs:1407-1421
-        alignment = buf.getvalue().decode()
-
-        m = len(samples)
-        dist = np.zeros((m, m), dtype=np.int64)
-        for i in range(m):
-            for j in range(i + 1, m):
-                d = _pair_mismatches(samples[i], samples[j])
-                dist[i, j] = dist[j, i] = d
-        clean = [_clean_name(n) for n in self.file_names]
-
-        results = {}
-        results["newick"] = neighbor_joining(dist, clean)
-        results["names"] = list(self.file_names)
-        results["alignment"] = alignment
-        return json.dumps(results)
 
     def get_size(self) -> int:
         return len(self._inputs)

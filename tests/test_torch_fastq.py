@@ -195,9 +195,11 @@ def test_chunked_build_steps_are_profiler_spans(tmp_path, monkeypatch):
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         cli.main(["build", "-f", str(tsv), "-k", "17", "--min-count", "2",
                   "-o", str(tmp_path / "p"), "--device", "cpu"])
-    spans = [e.name for e in prof.events() if e.name.startswith("ska::")]
-    steps = ("parse", "stage", "to_device", "device_pass", "to_host",
-             "union", "save")
+    # a library built at first use (ska::compile) is no step of the build
+    spans = [e.name for e in prof.events()
+             if e.name.startswith("ska::") and e.name != "ska::compile"]
+    steps = ("command", "parse", "stage", "to_device", "device_pass",
+             "to_host", "union", "save")
     assert set(spans) == {f"ska::{s}" for s in steps}
     assert spans.count("ska::device_pass") > 1  # one per chunk
 

@@ -91,10 +91,13 @@ def _argv(cmd, inp, out):
     }[cmd]
 
 
-# the spans each command runs through (ref.py, sample.py, api.py, cli.py)
+# the spans each command runs through (ref.py, sample.py, api.py, cli.py,
+# io/skf.py)
 SPANS = {
-    "build": {"ska::parse", "ska::device_pass", "ska::union", "ska::save"},
-    "map": {"ska::scan", "ska::lookup", "ska::vcf"},
+    "build": {"ska::parse", "ska::device_pass", "ska::union", "ska::save",
+              "ska::command"},
+    "map": {"ska::scan", "ska::lookup", "ska::vcf", "ska::command",
+            "ska::load", "ska::read", "ska::decompress", "ska::decode"},
     "weed": {"ska::scan"},
 }
 
@@ -283,3 +286,109 @@ def test_profile_one_trace_per_rank(group_traces, cmd):
             assert ("ska::save" in names) == rank0
     want = ["out.skf"] if cmd == "build" else []
     assert os.listdir(group_traces / cmd / "out") == want
+
+
+def _spans(path):
+    """The trace's record_function spans: [(name, thread, start, end)]."""
+    with open(path) as f:
+        doc = json.load(f)
+    return [(e["name"], e.get("tid"), float(e["ts"]),
+             float(e["ts"]) + float(e.get("dur", 0.0)))
+            for e in doc["traceEvents"]
+            if e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+
+
+def _profile_spans(fn, tmp_path):
+    """The spans of fn() run under torch.profiler (CPU activity)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    path = str(tmp_path / "fn.pt.trace.json")
+    prof.export_chrome_trace(path)
+    return _spans(path)
+
+
+def _inside(spans, outer):
+    """The spans nested in the span outer, on its thread."""
+    _, tid, a, b = outer
+    return [s for s in spans if s is not outer and s[1] == tid
+            and a <= s[2] < b and s[3] <= b]
+
+
+# the per-sample build's, the merge's and map's spans in a browser call
+CALL_SPANS = {"ska::parse", "ska::stage", "ska::to_device", "ska::device_pass",
+              "ska::to_host", "ska::merge", "ska::lookup", "ska::gather",
+              "ska::pseudoalign"}
+
+
+@pytest.mark.parametrize("query", ["fasta", "fastq_pair"])
+def test_webapi_call_encloses_its_steps(inputs, tmp_path, query):
+    """SkaData.map runs in one ska::call span that holds, on its thread,
+    every step of the call: the per-sample build, the merge and map."""
+    from ska_tpu_torch.webapi import SkaData
+
+    sd = SkaData(inputs["ref"], k=17, device="cpu")
+    files = ((inputs["samples"][0],) if query == "fasta" else inputs["fastq"])
+    spans = _profile_spans(lambda: sd.map(*files), tmp_path)
+    calls = [s for s in spans if s[0] == "ska::call"]
+    assert len(calls) == 1
+    assert {s[0] for s in _inside(spans, calls[0])} - {"ska::compile"} == CALL_SPANS
+
+
+# the spans whose self times the benchmark reads: nothing may nest in
+# them, or their metrics would shrink
+SELF_TIMED = ("ska::parse", "ska::stage", "ska::to_device", "ska::device_pass",
+              "ska::to_host", "ska::union", "ska::save", "ska::vcf")
+
+
+@pytest.mark.parametrize("path", ["build_fasta", "build_fastq", "map_vcf",
+                                  "webapi_map"])
+def test_no_span_nests_in_a_self_timed_span(inputs, tmp_path, monkeypatch,
+                                            capsys, path):
+    """On the benchmark's four paths, no span but ska::compile opens
+    inside a span whose self time a metric reads, on the same thread."""
+    monkeypatch.delenv("SKA_PROFILE", raising=False)
+    out = tmp_path / "out"
+    if path == "webapi_map":
+        from ska_tpu_torch.webapi import SkaData
+
+        sd = SkaData(inputs["ref"], k=17, device="cpu")
+        spans = _profile_spans(lambda: sd.map(inputs["samples"][0]), tmp_path)
+    else:
+        os.makedirs(out)
+        if path == "build_fastq":
+            files = tmp_path / "reads.tsv"
+            files.write_text("r\t%s\t%s\n" % inputs["fastq"])
+            argv = ["build", "-f", str(files), "-k", "17", "--min-count", "5",
+                    "--min-qual", "20", "-o", str(out / "out")]
+        else:
+            argv = _argv({"build_fasta": "build", "map_vcf": "map"}[path],
+                         inputs, str(out))
+        monkeypatch.setenv("SKA_PROFILE", str(tmp_path / "trace"))
+        cli.main(argv + ["--device", "cpu"])
+        (trace,) = os.listdir(tmp_path / "trace")
+        spans = _spans(str(tmp_path / "trace" / trace))
+    timed = [s for s in spans if s[0] in SELF_TIMED]
+    assert timed
+    nested = [(s[0], t[0]) for s in timed for t in _inside(spans, s)
+              if t[0] != "ska::compile"]
+    assert nested == []
+
+
+def test_compile_span_only_for_a_compiler_run(tmp_path):
+    """A forced rebuild through kernels._compile records one ska::compile
+    span; a call that finds the library up to date records none."""
+    src = tmp_path / "probe.cpp"
+    src.write_text('extern "C" int ska_probe() { return 7; }\n')
+    so = str(tmp_path / "lib" / "libprobe.so")
+
+    def compile_():
+        kernels._compile(kernels._gxx(), kernels.GXX_FLAGS, [str(src)], so)
+
+    def compiles():
+        return sum(s[0] == "ska::compile" for s in _profile_spans(compile_, tmp_path))
+
+    assert compiles() == 1
+    assert ctypes.CDLL(so).ska_probe() == 7
+    assert compiles() == 0
