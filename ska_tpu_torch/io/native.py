@@ -56,6 +56,12 @@ def _lib() -> ctypes.CDLL:
         lib.ska_aln_write.argtypes = [
             _u8p, _i64p, ctypes.c_int64, _i32p, _i64p, _u8p, ctypes.c_int64,
             ctypes.c_int64, _u8p, ctypes.c_int, _i64p, ctypes.c_int64, _u8p]
+        lib.ska_vcf_write.restype = ctypes.c_int64  # bytes, -1 no room, -2 allocation
+        lib.ska_vcf_write.argtypes = [
+            _u8p, ctypes.c_int64, ctypes.c_int64, _u8p, _i64p, ctypes.c_int64,
+            ctypes.c_char_p,  # NUL-separated contig names
+            ctypes.c_int64, ctypes.c_int64, _u8p, ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int64)]
         _LIB = lib
     return _LIB
 
@@ -256,3 +262,47 @@ def aln_write(ref_concat, chrom_len, m_chrom, m_pos, bases, half,
         raise MemoryError(
             "ska map: pseudoalignment buffers exceeded available memory")
     return out
+
+
+VCF_BLOCK_BYTES = 64 << 20
+
+
+def vcf_write(aln_mat, ref_concat, contig_start, contig_names,
+              block_bytes=VCF_BLOCK_BYTES):
+    """The VCF records of `ska map` (csrc/host/vcf_write.cpp): yields
+    their text in blocks of whole records, at most block_bytes each (or
+    one record, where a record is longer), so the whole VCF never sits
+    in memory. aln_mat is the (samples, reference length) uint8
+    pseudoalignment; contig_start each contig's first column in
+    ref_concat."""
+    aln = np.ascontiguousarray(aln_mat, dtype=np.uint8)
+    ref = np.ascontiguousarray(ref_concat, dtype=np.uint8)
+    starts = np.ascontiguousarray(contig_start, dtype=np.int64)
+    if aln.ndim != 2 or aln.shape[1] != len(ref):
+        raise ValueError(
+            f"vcf_write: alignment {aln.shape} does not span the "
+            f"reference's {len(ref)} bases")
+    if len(starts) != len(contig_names):
+        raise ValueError("vcf_write: contig starts and names differ in length")
+    names = [str(nm).encode("utf-8") for nm in contig_names]
+    if any(b"\x00" in nm for nm in names):
+        raise ValueError("vcf_write: a contig name holds a NUL byte")
+    blob = b"\x00".join(names)
+    S, L = aln.shape
+    # room for the longest record, as the writer bounds it
+    cap = max(int(block_bytes), max(map(len, names), default=0) + 2 * S + 64)
+    out = np.empty(cap, dtype=np.uint8)
+    nxt = ctypes.c_int64(0)
+    col = 0
+    while col < L:
+        n = _lib().ska_vcf_write(
+            aln.ctypes.data_as(_u8p), S, L, ref.ctypes.data_as(_u8p),
+            starts.ctypes.data_as(_i64p), len(names), blob, len(blob), col,
+            out.ctypes.data_as(_u8p), cap, ctypes.byref(nxt))
+        if n == -2:
+            raise MemoryError("ska map: VCF buffers exceeded available memory")
+        if n < 0:
+            raise RuntimeError(f"vcf_write: no record fits at column {col}")
+        col = nxt.value
+        if n:
+            yield str(out[:n], "utf-8")

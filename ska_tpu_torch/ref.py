@@ -5,15 +5,16 @@ are listed in positional order (parallel numpy arrays), extracted on the
 device by ops/extract.py, and mapping is one lookup of those keys in the
 sample array's sorted keys (ops/keys.py::lower_bound, on a card the
 lookup kernel csrc/lower_bound.cu) in place of the per-k-mer hashmap
-lookups of RefSka::map (ska_ref.rs:508-533). The pseudoalignment writer is the host
-library's AlnWriter (csrc/host/aln_write.cpp); the VCF writer is host
-Python, as in the JAX package.
+lookups of RefSka::map (ska_ref.rs:508-533). Both writers are in the
+host library: the pseudoalignment's AlnWriter (csrc/host/aln_write.cpp)
+and the VCF's records (csrc/host/vcf_write.cpp), where the JAX package
+loops in Python over the VCF's columns.
 
 Each step runs in a ``torch.profiler.record_function`` span, as the
 build's do: ``ska::parse``, ``ska::scan`` (the extraction dispatches),
 ``ska::lookup`` (the keys to the device, the lookup, the hits back),
 ``ska::gather`` (the hit rows of the variants matrix, on the host),
-``ska::pseudoalign`` and ``ska::vcf`` (the VCF's per-column loop).
+``ska::pseudoalign`` and ``ska::vcf`` (the VCF's records).
 
 In a process group (parallel.use_distributed) the lookup is cut into
 key ranges over the ranks (parallel/postbuild.py::distributed_lookup).
@@ -40,8 +41,6 @@ from .parallel import use_distributed
 from .parallel.postbuild import distributed_lookup
 from .sample import _bucket, _max_chunk_bases
 from .torchinit import get_device
-
-_GAP = ord("-")
 
 
 class RefSka:
@@ -308,46 +307,27 @@ class RefSka:
         w("\t".join(self.mapped_names) + "\n")
 
         with record_function("ska::vcf"):
-            self._vcf_records(w, aln_mat)
+            self._vcf_records(lambda text: _write_pieces(w, text), aln_mat)
 
     def _vcf_records(self, w, aln_mat):
         # a site is emitted iff any sample differs from the reference
-        # base (ska_ref.rs:707-750); the per-site record builder below is
-        # a Python loop over those columns, as in the JAX package
+        # base (ska_ref.rs:707-750); the host library writes the records
+        # (csrc/host/vcf_write.cpp), one w() a block of them
         ref_concat = np.concatenate(self.seq) if self.seq else np.zeros(0, np.uint8)
-        chrom_of = np.repeat(
-            np.arange(len(self.seq), dtype=np.int64),
-            [len(s) for s in self.seq],
-        )
-        chrom_start = np.cumsum([0] + [len(s) for s in self.seq[:-1]], dtype=np.int64)
-        variant_cols = np.nonzero((aln_mat != ref_concat[None, :]).any(axis=0))[0]
-
-        for col in variant_cols:
-            ci = int(chrom_of[col])
-            p = int(col - chrom_start[ci])
-            ref_base = int(ref_concat[col])
-            ref_allele = _vcf_base(ref_base)
-            gts = []
-            alt_bases = []
-            for mb in aln_mat[:, col]:
-                if mb == ref_base:
-                    gts.append("0")
-                elif mb == _GAP:
-                    gts.append(".")
-                else:
-                    ab = _vcf_base(int(mb))
-                    if ab not in alt_bases:
-                        alt_bases.append(ab)
-                    gts.append(str(alt_bases.index(ab) + 1))
-            alt = ",".join(alt_bases) if alt_bases else "."
-            w(
-                f"{self.chrom_names[ci]}\t{p + 1}\t.\t{ref_allele}\t{alt}\t.\t.\t.\tGT\t"
-                + "\t".join(gts)
-                + "\n"
-            )
+        lens = np.array([len(s) for s in self.seq], dtype=np.int64)
+        for text in native.vcf_write(aln_mat, ref_concat, np.cumsum(lens) - lens,
+                                     self.chrom_names):
+            w(text)
 
 
-def _vcf_base(b: int) -> str:
-    """ASCII byte -> VCF allele; non-ACGT becomes N (ska_ref.rs:148-156)."""
-    c = chr(b)
-    return c if c in "ACGT" else "N"
+# A pipe takes a write of at most PIPE_BUF (4096) bytes whole or not at
+# all. So a closed reader fails the next piece with BrokenPipeError
+# (exit 141) even where stdout is unbuffered (PYTHONUNBUFFERED), whose
+# text layer drops, unreported, what a partial write of a larger piece
+# leaves.
+_PIECE = 4096
+
+
+def _write_pieces(w, text):
+    for i in range(0, len(text), _PIECE):
+        w(text[i:i + _PIECE])

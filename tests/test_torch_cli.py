@@ -1,7 +1,8 @@
 """The port's CLI wrapper against ska_tpu.cli's (ska_tpu_torch/cli.py::main).
 
 - `map ... -f vcf` whose stdout is closed after 10 bytes exits 141 with
-  no traceback, as ./ska.py does;
+  no traceback, as ./ska.py does, also with PYTHONUNBUFFERED while the
+  writer waits on a full pipe;
 - the banner and the `SKA done in Ns` footer with its two lines go to
   stderr;
 - `--threads N` sets SKA_THREADS for every subcommand that takes it;
@@ -13,6 +14,7 @@ import os
 import re
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -68,6 +70,29 @@ def test_closed_stdout_exits_141_without_traceback(cohort):
     assert head == b"##fileform"
     assert rc == 141, err.decode()
     assert b"Traceback" not in err and b"Exception" not in err
+
+
+def test_closed_unbuffered_stdout_exits_141(cohort):
+    """With PYTHONUNBUFFERED the VCF still reaches the pipe in pieces a
+    pipe takes whole: a reader that closes after 10 bytes, while the
+    writer waits on the full pipe, fails the next piece."""
+    ref, skf_path = cohort
+    p = subprocess.Popen(PORT + ["map", ref, skf_path, "-f", "vcf", "--device", "cpu"],
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         env=dict(_env(), PYTHONUNBUFFERED="1"), cwd=REPO)
+    try:
+        head = os.read(p.stdout.fileno(), 10)
+        time.sleep(0.5)
+        p.stdout.close()
+        err = p.stderr.read()
+        rc = p.wait(timeout=300)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    assert head == b"##fileform"
+    assert rc == 141, err.decode()
+    assert b"Traceback" not in err
 
 
 def test_banner_and_footer_on_stderr(cohort, tmp_path):

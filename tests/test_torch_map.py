@@ -21,6 +21,12 @@
 - api.map_mode writes the aln and VCF bytes of ska_tpu.api.map_mode with
   and without the ambiguity and repeat masks, for a .skf whose keys are
   not sorted, and raises the same error for an all-weeded .skf;
+- RefSka._vcf_records, the host library's VCF writer
+  (csrc/host/vcf_write.cpp), writes the text of the per-column loop it
+  replaced on hand-built alignments (ALT order, IUPAC codes folded to
+  one N, non-ACGT and lowercase reference bytes, gaps, POS restarting
+  at each contig, no variant, 1, 40 and 616 samples), whole and in
+  blocks of the binding's block_bytes;
 - api.weed_mode writes the .skf bytes of ska_tpu.api.weed_mode;
 - `python -m ska_tpu_torch map|weed --device cpu` write the bytes of
   `./ska.py map|weed`, importing neither jax nor ska_tpu.
@@ -42,6 +48,7 @@ from ska_tpu.io import skf as jskf
 from ska_tpu.ops import keys as JK
 from ska_tpu.sampletypes import QualOpts
 from ska_tpu_torch import api as tapi
+from ska_tpu_torch.io import native as tnative
 from ska_tpu_torch.io import skf as tskf
 from ska_tpu_torch.ops import keys as TK
 from ska_tpu_torch.ops import lookup as LU
@@ -547,12 +554,138 @@ def test_map_all_weeded_raises_as_jax(mapped):
 
 def test_map_threads_keep_bytes(mapped, monkeypatch):
     _, ref, skfs, _ = mapped
-    one = _map_both(skfs[41], ref, "aln", True, True)[0]
-    monkeypatch.setenv("SKA_THREADS", "3")
-    arr = tskf.load(skfs[41])
-    fh = io.BytesIO()
-    tapi.map_mode(arr, ref, fh, "aln", True, True, device="cpu")
-    assert fh.getvalue() == one
+    for fmt in ("aln", "vcf"):
+        one = _map_both(skfs[41], ref, fmt, True, True)[0]
+        with monkeypatch.context() as mp:
+            mp.setenv("SKA_THREADS", "3")
+            arr = tskf.load(skfs[41])
+            fh = io.BytesIO() if fmt == "aln" else io.StringIO()
+            tapi.map_mode(arr, ref, fh, fmt, True, True, device="cpu")
+        assert fh.getvalue() == one, fmt
+
+
+# ------------------------------------------------------------ VCF records
+
+
+def _vcf_loop(seqs, names, aln):
+    """The records as the per-column loop the host library replaced
+    wrote them (ska_ref.rs:707-750)."""
+    ref = np.concatenate(seqs)
+    lens = [len(s) for s in seqs]
+    starts = np.cumsum([0] + lens[:-1])
+    chrom_of = np.repeat(np.arange(len(seqs)), lens)
+    fold = lambda b: chr(b) if chr(b) in "ACGT" else "N"  # noqa: E731
+    out = []
+    for col in np.nonzero((aln != ref[None, :]).any(axis=0))[0]:
+        ci, rb = chrom_of[col], ref[col]
+        gts, alts = [], []
+        for mb in aln[:, col]:
+            if mb == rb:
+                gts.append("0")
+            elif mb == ord("-"):
+                gts.append(".")
+            else:
+                if fold(mb) not in alts:
+                    alts.append(fold(mb))
+                gts.append(str(alts.index(fold(mb)) + 1))
+        out.append(f"{names[ci]}\t{col - starts[ci] + 1}\t.\t{fold(rb)}\t"
+                   f"{','.join(alts) or '.'}\t.\t.\t.\tGT\t"
+                   + "\t".join(gts) + "\n")
+    return "".join(out)
+
+
+def _random_vcf_case(n_samples, lens, seed):
+    """Contigs of random ACGT with some lowercase and IUPAC bytes, and
+    samples that mostly keep the reference's byte."""
+    rng = np.random.default_rng(seed)
+    pool = np.frombuffer(b"ACGTN-RYKMacgtn", np.uint8)
+    seqs = [rng.choice(pool[[0, 1, 2, 3, 3, 2, 1, 0, 4, 6, 10]], n) for n in lens]
+    ref = np.concatenate(seqs)
+    aln = np.repeat(ref[None, :], n_samples, axis=0)
+    hit = rng.random(aln.shape) < 0.02
+    aln[hit] = rng.choice(pool, int(hit.sum()))
+    return ([s.tobytes() for s in seqs], [f"ctg{i}" for i in range(len(lens))],
+            [r.tobytes() for r in aln], None, 1)
+
+
+# each case: contigs, their names, the samples' rows, the text expected
+# (or None: the loop's alone), and the binding's block_bytes
+VCF_CASES = {
+    "alt_order": lambda: (
+        [b"ACGTA"], ["chr"], [b"TCGTA", b"GCGTC", b"TCGTG", b"CCGT-"],
+        "chr\t1\t.\tA\tT,G,C\t.\t.\t.\tGT\t1\t2\t1\t3\n"
+        "chr\t5\t.\tA\tC,G\t.\t.\t.\tGT\t0\t1\t2\t.\n", 1),
+    "iupac_fold_to_one_n": lambda: (
+        [b"ACGT"], ["c"], [b"RCGT", b"YCGT", b"ACGN", b"NCGT"],
+        "c\t1\t.\tA\tN\t.\t.\t.\tGT\t1\t1\t0\t1\n"
+        "c\t4\t.\tT\tN\t.\t.\t.\tGT\t0\t0\t1\t0\n", 1),
+    "ref_not_acgt": lambda: (
+        [b"NaRcG"], ["c"], [b"AaYCG", b"NAR-g"],
+        "c\t1\t.\tN\tA\t.\t.\t.\tGT\t1\t0\n"
+        "c\t2\t.\tN\tA\t.\t.\t.\tGT\t0\t1\n"
+        "c\t3\t.\tN\tN\t.\t.\t.\tGT\t1\t0\n"
+        "c\t4\t.\tN\tC\t.\t.\t.\tGT\t1\t.\n"
+        "c\t5\t.\tG\tN\t.\t.\t.\tGT\t0\t1\n", 1),
+    "all_gap_column": lambda: (
+        [b"ACGT"], ["c"], [b"A-GT"] * 3,
+        "c\t2\t.\tC\t.\t.\t.\t.\tGT\t.\t.\t.\n", 1),
+    "pos_restarts_per_contig": lambda: (
+        [b"ACG", b"", b"TTAA", b"G"], ["c1", "empty", "c3", "c4"],
+        [b"CCTATAAC", b"ACGTTAGG"],
+        "c1\t1\t.\tA\tC\t.\t.\t.\tGT\t1\t0\n"
+        "c1\t3\t.\tG\tT\t.\t.\t.\tGT\t1\t0\n"
+        "c3\t1\t.\tT\tA\t.\t.\t.\tGT\t1\t0\n"
+        "c3\t4\t.\tA\tG\t.\t.\t.\tGT\t0\t1\n"
+        "c4\t1\t.\tG\tC\t.\t.\t.\tGT\t1\t0\n", 1),
+    "no_variant": lambda: ([b"ACGTN", b"ac"], ["a", "b"], [b"ACGTNac"] * 2, "", 1),
+    "one_sample": lambda: (
+        [b"ACGTACGT"], ["c"], [b"AGGTAC-T"],
+        "c\t2\t.\tC\tG\t.\t.\t.\tGT\t1\n"
+        "c\t7\t.\tG\t.\t.\t.\t.\tGT\t.\n", 1),
+    "forty_samples": lambda: _random_vcf_case(40, [700, 0, 300], 1),
+    "616_samples": lambda: _random_vcf_case(616, [900, 100], 2),
+    # past one block of text and past the writer's 8,192-column tiles
+    "block_boundary": lambda: _random_vcf_case(3, [12000, 9000], 3)[:4] + (4096,),
+}
+
+
+@pytest.mark.parametrize("case", list(VCF_CASES))
+def test_vcf_records_match_loop(case):
+    seqs, names, rows, want, block_bytes = VCF_CASES[case]()
+    seqs = [np.frombuffer(s, np.uint8) for s in seqs]
+    aln = np.array([np.frombuffer(r, np.uint8) for r in rows])
+    loop = _vcf_loop(seqs, names, aln)
+    if want is not None:
+        assert loop == want
+    ref = TRefSka.__new__(TRefSka)
+    ref.seq, ref.chrom_names = seqs, names
+    got = []
+    ref._vcf_records(got.append, aln)
+    assert "".join(got) == loop
+    assert len(got) == (1 if loop else 0)  # one block at the default size
+
+    lens = np.array([len(s) for s in seqs])
+    blocks = list(tnative.vcf_write(aln, np.concatenate(seqs),
+                                    np.cumsum(lens) - lens, names,
+                                    block_bytes=block_bytes))
+    assert "".join(blocks) == loop
+    assert all(b.endswith("\n") for b in blocks)
+    if block_bytes == 1:  # no room beyond one record a block
+        assert len(blocks) == loop.count("\n")
+    else:
+        assert len(blocks) > 2
+        assert all(len(b) <= block_bytes for b in blocks)
+
+
+def test_vcf_write_refuses_what_does_not_fit():
+    aln = np.frombuffer(b"ACGT", np.uint8)[None, :]
+    ref = np.frombuffer(b"ACG", np.uint8)
+    with pytest.raises(ValueError, match="does not span"):
+        list(tnative.vcf_write(aln, ref, [0], ["c"]))
+    with pytest.raises(ValueError, match="differ in length"):
+        list(tnative.vcf_write(aln, np.frombuffer(b"ACGA", np.uint8), [0, 2], ["c"]))
+    with pytest.raises(ValueError, match="NUL"):
+        list(tnative.vcf_write(aln, np.frombuffer(b"ACGA", np.uint8), [0], ["c\x00d"]))
 
 
 # ------------------------------------------------------------ weed
