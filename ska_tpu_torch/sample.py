@@ -18,7 +18,15 @@ builds alike. The spans cost nothing measurable when no profiler runs;
 under one they give each step's host wall time beside the device's
 kernel time (chip_smoke.py, phase 4). Each device pass ends on a wait
 for its row counts, which the copies after it would wait for anyway,
-so the spans move no work.
+so the spans move no work. The chunked build stages its masks in a
+``ska::stage`` span of their own and merges its chunks on the host in
+``ska::chunk_merge``.
+
+Counters of the chunked build (``torchinit.chunk_counts``, zeroed with
+the launch counters): ``chunked_samples``, the samples built in chunks;
+``chunks``, the device passes they took; ``chunk_rows``, the rows those
+passes handed to the host merge (whole k-mers under a count filter,
+split k-mers without one).
 """
 
 import concurrent.futures as cf
@@ -38,6 +46,10 @@ from .ops.npkeys import np_lex_argsort, width_for_k
 from .progress import Bar
 from .sampletypes import QualOpts, SampleDict
 from .torchinit import get_device
+
+chunked_samples = 0
+chunks = 0
+chunk_rows = 0
 
 
 def _bucket(n: int) -> int:
@@ -561,9 +573,11 @@ def dict_from_batch_chunked(batch: fastx.SeqBatch, k: int, rc: bool,
     and the threshold applies globally (see
     ops.pipeline.chunk_count_pipeline).
     """
+    global chunked_samples, chunks, chunk_rows
     dev = get_device(device)
     W = width_for_k(k)
-    valid_full, qual_full = _masks(batch, qual, is_reads)
+    with record_function("ska::stage"):
+        valid_full, qual_full = _masks(batch, qual, is_reads)
     use_mq, strict_valid = _gates(is_reads, batch.has_qual, qual)
     want_count = bool(is_reads and qual.min_count > 1)
     Lp = _bucket(cap + k + 1)
@@ -604,29 +618,35 @@ def dict_from_batch_chunked(batch: fastx.SeqBatch, k: int, rc: bool,
                                        is_end.cpu().numpy(), W)
             kparts.append(kk)
             sparts.append(ss)
+    chunked_samples += 1
+    chunks += len(wparts) + len(kparts)
+    chunk_rows += sum(len(x) for x in wparts + kparts)
+    with record_function("ska::chunk_merge"):
+        if want_count:
+            order, first, totals = key_totals(np.concatenate(wparts),
+                                              np.concatenate(cparts))
+            # contribute iff the total occurrence count reaches min_count
+            # (identical split pair for every occurrence of a whole k-mer)
+            pk = np.concatenate(pparts)[order][first]
+            pk = pk[totals >= qual.min_count]
+            keys = P._shr_np(pk)
+            sets = (pk[:, W - 1] & np.uint64(15)).astype(np.uint8)
+        else:
+            keys = (np.concatenate(kparts) if kparts
+                    else np.zeros((0, W), np.uint64))
+            sets = (np.concatenate(sparts) if sparts
+                    else np.zeros(0, np.uint8))
 
-    if want_count:
-        order, first, totals = key_totals(np.concatenate(wparts),
-                                          np.concatenate(cparts))
-        # contribute iff the total occurrence count reaches min_count
-        # (identical split pair for every occurrence of a whole k-mer)
-        pk = np.concatenate(pparts)[order][first][totals >= qual.min_count]
-        keys = P._shr_np(pk)
-        sets = (pk[:, W - 1] & np.uint64(15)).astype(np.uint8)
-    else:
-        keys = np.concatenate(kparts) if kparts else np.zeros((0, W), np.uint64)
-        sets = np.concatenate(sparts) if sparts else np.zeros(0, np.uint8)
-
-    # merge across chunks / whole-kmer groups: sort by split key +
-    # segmented union of the 4-bit sets
-    if len(keys):
-        order = np_lex_argsort(keys)
-        keys, sets = keys[order], sets[order]
-        first = np.ones(len(keys), bool)
-        first[1:] = (keys[1:] != keys[:-1]).any(axis=-1)
-        # segmented OR via reduceat (ufunc.at is unbuffered and ~100x
-        # slower at genome scale)
-        sets = np.bitwise_or.reduceat(sets, np.flatnonzero(first))
-        keys = keys[first]
-    return keys.astype(np.uint64), sets.astype(np.uint8)
+        # merge across chunks / whole-kmer groups: sort by split key +
+        # segmented union of the 4-bit sets
+        if len(keys):
+            order = np_lex_argsort(keys)
+            keys, sets = keys[order], sets[order]
+            first = np.ones(len(keys), bool)
+            first[1:] = (keys[1:] != keys[:-1]).any(axis=-1)
+            # segmented OR via reduceat (ufunc.at is unbuffered and ~100x
+            # slower at genome scale)
+            sets = np.bitwise_or.reduceat(sets, np.flatnonzero(first))
+            keys = keys[first]
+        return keys.astype(np.uint64), sets.astype(np.uint8)
 

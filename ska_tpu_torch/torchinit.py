@@ -8,19 +8,22 @@ Tests pass ``cpu``.
 
 Each hand-written kernel's wrapper keeps a plain integer that it adds
 one to where it launches its kernel, and nowhere else;
-``launch_counts`` reads them all and ``reset_launch_counts`` zeroes them.
+``launch_counts`` reads them all and ``reset_launch_counts`` zeroes them,
+and the chunked build's counters (``chunk_counts``) with them.
 
 SKA_DISPATCH_STATS=1 (the counterpart of ska_tpu/jaxinit.py's switch)
 prints one stderr line when the process exits:
 
-    SKA_DISPATCH_STATS {"kernel_launches": N, "launches": {...}, "kernel_builds": B}
+    SKA_DISPATCH_STATS {"kernel_launches": N, "launches": {...}, "kernel_builds": B, "chunked": {...}}
 
 ``launches`` is ``launch_counts()`` at exit and ``kernel_launches`` their
 sum: the hand-written kernels' launches, the port's counterpart of the
 JAX package's jit dispatches (a torch op launches kernels of its own,
 which nothing here counts). ``kernel_builds`` is the compiler runs that
 ``kernels`` made in this process, nvcc and g++ together, the counterpart
-of its backend compiles. Every compute module imports this one, so the
+of its backend compiles. ``chunked`` is ``chunk_counts()`` at exit: the
+samples built in chunks, their chunks and the rows the chunks handed to
+the host merge (sample.py). Every compute module imports this one, so the
 CLI, webapi and graft_entry all report it. The line has the form of the
 JAX package's, which scripts/bench_cmds.py's ``_STATS_RE`` matches, but
 that script runs the JAX CLI: the port's line is for whoever runs a
@@ -57,11 +60,22 @@ def launch_counts() -> dict:
             "lower_bound": lookup.lower_bound_launches}
 
 
+def chunk_counts() -> dict:
+    """The chunked build's counters since the last reset_launch_counts():
+    samples built in chunks, chunks, and rows handed to the host merge."""
+    from . import sample
+
+    return {"chunked_samples": sample.chunked_samples,
+            "chunks": sample.chunks, "chunk_rows": sample.chunk_rows}
+
+
 def reset_launch_counts():
+    from . import sample
     from .ops import lookup, sort
 
     sort.radix_launches = 0
     lookup.lower_bound_launches = 0
+    sample.chunked_samples = sample.chunks = sample.chunk_rows = 0
 
 
 def _print_dispatch_stats():
@@ -70,7 +84,7 @@ def _print_dispatch_stats():
 
     launches = launch_counts()
     stats = {"kernel_launches": sum(launches.values()), "launches": launches,
-             "kernel_builds": kernels.builds}
+             "kernel_builds": kernels.builds, "chunked": chunk_counts()}
     print("SKA_DISPATCH_STATS " + json.dumps(stats), file=sys.stderr)
 
 

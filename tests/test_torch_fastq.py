@@ -188,20 +188,132 @@ def test_chunked_build_steps_are_profiler_spans(tmp_path, monkeypatch):
 
     from ska_tpu_torch import cli
 
-    files = _fastq_cohort(tmp_path, seed=8, n_samples=1, n_pairs=40)
+    files = _fastq_cohort(tmp_path, seed=8, n_samples=2, n_pairs=40)
     tsv = tmp_path / "s.tsv"
     tsv.write_text("".join("\t".join(f) + "\n" for f in files))
+    argv = ["build", "-f", str(tsv), "-k", "17", "--min-count", "2", "-o",
+            str(tmp_path / "p"), "--device", "cpu"]
+
+    def spans():
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            cli.main(argv)
+        # a library built at first use (ska::compile) is no step of the build
+        return [e.name for e in prof.events()
+                if e.name.startswith("ska::") and e.name != "ska::compile"]
+
+    whole = spans()
+    assert "ska::chunk_merge" not in whole
     monkeypatch.setenv("SKA_MAX_CHUNK_BASES", "4096")
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
-        cli.main(["build", "-f", str(tsv), "-k", "17", "--min-count", "2",
-                  "-o", str(tmp_path / "p"), "--device", "cpu"])
-    # a library built at first use (ska::compile) is no step of the build
-    spans = [e.name for e in prof.events()
-             if e.name.startswith("ska::") and e.name != "ska::compile"]
+    chunked = spans()
     steps = ("command", "parse", "stage", "to_device", "device_pass",
-             "to_host", "union", "save")
-    assert set(spans) == {f"ska::{s}" for s in steps}
-    assert spans.count("ska::device_pass") > 1  # one per chunk
+             "to_host", "chunk_merge", "union", "save")
+    assert set(chunked) == {f"ska::{s}" for s in steps}
+    assert chunked.count("ska::device_pass") >= 2 * 2  # one per chunk
+    assert chunked.count("ska::chunk_merge") == 2  # one per chunked sample
+
+
+@pytest.mark.parametrize("min_count", [5, 0])
+def test_chunk_counters(tmp_path, monkeypatch, min_count):
+    """chunk_counts() holds the chunked samples, the chunks the build cut
+    and the rows those chunks handed to the host merge; a sample under
+    the cap counts nothing, and reset_launch_counts zeroes them."""
+    from ska_tpu_torch import torchinit
+
+    rng = np.random.default_rng(9)
+    files = []
+    # small: ~10x of 300 bases, under the cap
+    for name, glen, n_pairs in (("big", 700, 80), ("small", 300, 20)):
+        fwd, rev = _read_pairs(rng, _genome(rng, glen), n_pairs, 80)
+        files.append((name, _write_fastq(tmp_path / f"{name}_1.fastq", fwd),
+                      _write_fastq(tmp_path / f"{name}_2.fastq", rev)))
+    qual = QualOpts(min_count=min_count, min_qual=20, qual_filter=2)
+    cap, k = 4096, 17
+    batch, is_reads = tsample.prepare_sample(files[0][1:])
+    valid, _ = tsample._masks(batch, qual, is_reads)
+    n_chunks = len(list(tsample._chunk_views(batch, k, cap, valid)))
+    handed = []  # rows of each chunk's host compaction
+
+    def counted(unpack):
+        def run(*args):
+            out = unpack(*args)
+            handed.append(len(out[0]))
+            return out
+        return run
+
+    for name in ("unpack_chunk_counts", "unpack_host"):
+        monkeypatch.setattr(TP, name, counted(getattr(TP, name)))
+    monkeypatch.setenv("SKA_MAX_CHUNK_BASES", str(cap))
+    torchinit.reset_launch_counts()
+    tapi.build(files, k, True, qual, device="cpu")
+    assert n_chunks >= 3 and len(handed) == n_chunks
+    assert torchinit.chunk_counts() == {
+        "chunked_samples": 1, "chunks": n_chunks, "chunk_rows": sum(handed)}
+    torchinit.reset_launch_counts()
+    assert torchinit.chunk_counts() == {
+        "chunked_samples": 0, "chunks": 0, "chunk_rows": 0}
+
+
+def _planted_pair(tmp_path, rng):
+    """A read pair of a 3 kb genome at ~27x, with two 60-base segments
+    that the genome lacks planted in whole high-quality reads of the
+    forward file, spread evenly over it: `kept` 6 times and `dropped` 4
+    times. Returns (fwd, rev, kept, dropped)."""
+    fwd, rev = _read_pairs(rng, _genome(rng, 3000), 400, 100, repeat=0)
+    kept, dropped = _genome(rng, 60), _genome(rng, 60)
+    for seg, n in ((kept, 6), (dropped, 4)):
+        for j in range(n):
+            read = np.concatenate([_genome(rng, 20), seg, _genome(rng, 20)])
+            at = (2 * j + 1) * len(fwd) // (2 * n)
+            fwd.insert(at, (read.tobytes(), b"I" * len(read)))
+            rev.insert(at, rev[at])  # its mate: a copy of a genome read
+    return (_write_fastq(tmp_path / "p_1.fastq", fwd),
+            _write_fastq(tmp_path / "p_2.fastq", rev), kept, dropped)
+
+
+@pytest.mark.parametrize("k", [17, 31])
+def test_chunked_count_build_matches_plain_reference(tmp_path, monkeypatch,
+                                                     k):
+    """A read pair cut into at least three chunks builds, under
+    --min-count 5 and the strict filter, the .skf that the benchmark's
+    plain reference (skabench/reference) works out from the same files:
+    a whole k-mer seen 6 times, never 5 times in one chunk, is kept, and
+    one seen 4 times is dropped."""
+    from ska_tpu_torch import torchinit
+    from ska_tpu_torch.io import skf as tskf
+    from skabench.reference import build as reference
+    from skabench.reference import kmers as R
+
+    fwd, rev, kept, dropped = _planted_pair(tmp_path,
+                                            np.random.default_rng(k))
+    cap = 16384
+    batch, is_reads = tsample.prepare_sample((fwd, rev))
+    qual = QualOpts(min_count=5, min_qual=20, qual_filter=2)
+    valid, _ = tsample._masks(batch, qual, is_reads)
+    views = list(tsample._chunk_views(batch, k, cap, valid))
+    assert len(views) >= 3
+    for seg, total in ((kept, 6), (dropped, 4)):
+        # each of seg's windows: in how many reads of each chunk
+        per_chunk = [[batch.seq[a:end].tobytes().count(seg[i:i + k].tobytes())
+                      for i in range(len(seg) - k + 1)]
+                     for a, _, end in views]
+        assert np.array_equal(np.sum(per_chunk, axis=0),
+                              [total] * (len(seg) - k + 1))
+        assert np.max(per_chunk) < 5
+
+    monkeypatch.setenv("SKA_MAX_CHUNK_BASES", str(cap))
+    torchinit.reset_launch_counts()
+    arr = tapi.build([("p", fwd, rev)], k, True, qual, device="cpu")
+    assert torchinit.chunk_counts()["chunks"] == len(views)
+    path = tskf.save(arr, str(tmp_path / "port"))
+    cfg = {"build": {"k": k, "rc": True, "min_qual": 20,
+                     "qual_filter": "strict", "min_count": 5}}
+    exp = reference.expected(cfg, {"samples": [("p", fwd, rev)]})
+    assert reference.compare(exp, path) == {
+        "skf_unreadable": 0, "header_differing": 0, "rows_unsorted": 0,
+        "rows_differing": 0}
+    got = arr.keys[:, 0]
+    assert np.isin(R.sample_dict([kept], k)[0], got).all()
+    assert not np.isin(R.sample_dict([dropped], k)[0], got).any()
 
 
 def test_chunked_boundary_on_record_final_window():

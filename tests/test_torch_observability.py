@@ -198,10 +198,36 @@ def test_dispatch_stats_line(inputs, tmp_path, switch):
         return
     assert len(lines) == 1
     stats = json.loads(stats_re.search(lines[0]).group(1))
-    assert set(stats) == {"kernel_launches", "launches", "kernel_builds"}
+    assert set(stats) == {"kernel_launches", "launches", "kernel_builds",
+                          "chunked"}
     assert stats["launches"] == {"radix_sort": 0, "lower_bound": 0}
+    assert stats["chunked"] == {"chunked_samples": 0, "chunks": 0,
+                                "chunk_rows": 0}
     assert stats["kernel_launches"] == 0
     assert isinstance(stats["kernel_builds"], int) and stats["kernel_builds"] >= 0
+
+
+def test_dispatch_stats_count_chunks(inputs, tmp_path, monkeypatch):
+    """A reads build cut into chunks prints, under SKA_DISPATCH_STATS=1,
+    the chunked counters that the same build counts in process: one
+    chunked sample, its chunks and the rows they handed to the merge."""
+    from ska_tpu_torch import torchinit
+
+    tsv = tmp_path / "reads.tsv"
+    tsv.write_text("r\t%s\t%s\n" % inputs["fastq"])
+    os.makedirs(tmp_path / "out")
+    argv = ["build", "-f", str(tsv), "-k", "17", "-o",
+            str(tmp_path / "out" / "out")]
+    r = _port(argv, SKA_DISPATCH_STATS="1", SKA_MAX_CHUNK_BASES="40000")
+    assert r.returncode == 0, r.stderr.decode()[-2000:]
+    (line,) = [ln for ln in r.stderr.splitlines() if _stats_re().search(ln)]
+    stats = json.loads(_stats_re().search(line).group(1))
+    monkeypatch.setenv("SKA_MAX_CHUNK_BASES", "40000")
+    torchinit.reset_launch_counts()
+    cli.main(argv + ["--device", "cpu"])
+    want = torchinit.chunk_counts()
+    assert want["chunked_samples"] == 1 and want["chunks"] >= 3
+    assert stats["chunked"] == want
 
 
 @pytest.mark.parametrize("switch", ["1", None])
@@ -343,12 +369,16 @@ SELF_TIMED = ("ska::parse", "ska::stage", "ska::to_device", "ska::device_pass",
 
 
 @pytest.mark.parametrize("path", ["build_fasta", "build_fastq", "map_vcf",
-                                  "webapi_map"])
+                                  "webapi_map", "build_fastq_chunked"])
 def test_no_span_nests_in_a_self_timed_span(inputs, tmp_path, monkeypatch,
                                             capsys, path):
-    """On the benchmark's four paths, no span but ska::compile opens
-    inside a span whose self time a metric reads, on the same thread."""
+    """On the benchmark's five paths, no span but ska::compile opens
+    inside a span whose self time a metric reads, on the same thread.
+    The chunked reads build (the read pair cut into chunks) merges its
+    chunks in one ska::chunk_merge inside ska::command."""
     monkeypatch.delenv("SKA_PROFILE", raising=False)
+    if path == "build_fastq_chunked":
+        monkeypatch.setenv("SKA_MAX_CHUNK_BASES", "40000")
     out = tmp_path / "out"
     if path == "webapi_map":
         from ska_tpu_torch.webapi import SkaData
@@ -357,7 +387,7 @@ def test_no_span_nests_in_a_self_timed_span(inputs, tmp_path, monkeypatch,
         spans = _profile_spans(lambda: sd.map(inputs["samples"][0]), tmp_path)
     else:
         os.makedirs(out)
-        if path == "build_fastq":
+        if path in ("build_fastq", "build_fastq_chunked"):
             files = tmp_path / "reads.tsv"
             files.write_text("r\t%s\t%s\n" % inputs["fastq"])
             argv = ["build", "-f", str(files), "-k", "17", "--min-count", "5",
@@ -374,6 +404,11 @@ def test_no_span_nests_in_a_self_timed_span(inputs, tmp_path, monkeypatch,
     nested = [(s[0], t[0]) for s in timed for t in _inside(spans, s)
               if t[0] != "ska::compile"]
     assert nested == []
+    merges = [s for s in spans if s[0] == "ska::chunk_merge"]
+    assert len(merges) == (path == "build_fastq_chunked")
+    if merges:
+        (command,) = [s for s in spans if s[0] == "ska::command"]
+        assert merges[0] in _inside(spans, command)
 
 
 def test_compile_span_only_for_a_compiler_run(tmp_path):
