@@ -3,16 +3,21 @@
 // (ska_tpu_torch/io/{snappy,cbor,skf}.py, csrc/host/save.cpp).
 //
 // A copy of the functions of the JAX package's csrc/skanative.cpp that
-// `build`, `load` and `align` call, kept verbatim so that both write and
-// read the same bytes: the greedy snappy compressor in particular fixes
-// the .skf bytes. The multi-threaded frame decoder (SKA_THREADS), the
-// byte-narrow and u128 CBOR encoders are not copied: the port's path
-// does not call them; the pseudoalignment writer is in aln_write.cpp.
-// Plain C ABI for ctypes.
+// `build`, `load` and `align` call, so that both write and read the same
+// bytes: the greedy snappy compressor in particular fixes the .skf
+// bytes. Two changes make every function safe to call from several
+// threads at once (save.cpp compresses chunks on the host pool), and
+// neither changes a byte: the compressor's hash table is the call's own
+// (the table is cleared on every call in both), and the CRC table and
+// the SSE4.2 probe are set up once under std::call_once. The multi-threaded
+// frame decoder (SKA_THREADS), the byte-narrow and u128 CBOR encoders
+// are not copied: the port's path does not call them; the
+// pseudoalignment writer is in aln_write.cpp. Plain C ABI for ctypes.
 
 #include <cstdint>
 #include <cstring>
 #include <cstddef>
+#include <mutex>
 
 #if defined(__x86_64__) || defined(__i386__)
 #include <nmmintrin.h>
@@ -24,7 +29,7 @@ extern "C" {
 // ---- CRC-32C (Castagnoli), slice-by-8 ----------------------------------------
 
 static uint32_t crc_table[8][256];
-static bool crc_init_done = false;
+static std::once_flag crc_once;
 
 static void crc_init() {
     const uint32_t poly = 0x82F63B78u;
@@ -40,7 +45,6 @@ static void crc_init() {
             crc_table[t][i] = c;
         }
     }
-    crc_init_done = true;
 }
 
 #ifdef SKA_X86
@@ -60,15 +64,18 @@ crc32c_hw(const uint8_t* data, size_t n) {
     for (; i < n; i++) c = _mm_crc32_u8(c, data[i]);
     return c ^ 0xFFFFFFFFu;
 }
-static int crc_hw_ok = -1;  // -1 unprobed; cpuid check is cheap but not free
+static bool crc_hw_ok = false;
+static std::once_flag crc_hw_once;  // the cpuid probe is cheap but not free
 #endif
 
 uint32_t ska_crc32c(const uint8_t* data, size_t n) {
 #ifdef SKA_X86
-    if (crc_hw_ok < 0) crc_hw_ok = __builtin_cpu_supports("sse4.2") ? 1 : 0;
+    std::call_once(crc_hw_once, [] {
+        crc_hw_ok = __builtin_cpu_supports("sse4.2");
+    });
     if (crc_hw_ok) return crc32c_hw(data, n);
 #endif
-    if (!crc_init_done) crc_init();
+    std::call_once(crc_once, crc_init);
     uint32_t crc = 0xFFFFFFFFu;
     size_t i = 0;
     while (i + 8 <= n) {
@@ -311,7 +318,8 @@ static inline size_t emit_copy(uint8_t* out, size_t opos, size_t off, size_t len
     return opos;
 }
 
-// out_cap must be >= 32 + n + n/6 (snappy MaxCompressedLength)
+// out_cap must be >= 32 + n + n/6 (snappy MaxCompressedLength). The
+// hash table is on the call's stack, so concurrent calls share nothing.
 long long ska_snappy_compress(const uint8_t* in, size_t n, uint8_t* out, size_t out_cap) {
     (void)out_cap;
     size_t opos = 0;
@@ -330,7 +338,7 @@ long long ska_snappy_compress(const uint8_t* in, size_t n, uint8_t* out, size_t 
 
     const size_t HASH_BITS = 14;
     const size_t HASH_SIZE = (size_t)1 << HASH_BITS;
-    static uint16_t table[1 << 14];
+    uint16_t table[1 << 14];
     memset(table, 0, sizeof(table));
 
     size_t ip = 0;

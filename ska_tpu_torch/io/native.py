@@ -51,7 +51,7 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_char_p,  # NUL-separated names blob
             _LL, _LL, ctypes.c_int, ctypes.c_int,
             ctypes.c_char_p,  # version text
-            _LL]
+            _LL, _i64p]  # out: framing chunks, threads
         lib.ska_aln_write.restype = ctypes.c_int  # 0 ok, -2 allocation failure
         lib.ska_aln_write.argtypes = [
             _u8p, _i64p, ctypes.c_int64, _i32p, _i64p, _u8p, ctypes.c_int64,
@@ -212,8 +212,9 @@ def update_counts(variants, drop_ambig, is_ambig):
 
 
 def skf_save(path, keys, variants, counts, names, k, rc, ska_version):
-    """One-pass `.skf` writer (csrc/host/save.cpp ska_host_save): CBOR
-    encode + snappy framing. Raises when the writer declines."""
+    """The `.skf` writer (csrc/host/save.cpp ska_host_save): CBOR encode
+    + snappy framing on SKA_THREADS threads. Returns (framing chunks,
+    threads used); raises when the writer declines."""
     keys_np = np.ascontiguousarray(keys, dtype=np.uint64)
     if keys_np.ndim == 1:
         keys_np = keys_np[:, None]
@@ -227,13 +228,15 @@ def skf_save(path, keys, variants, counts, names, k, rc, ska_version):
             f"counts {counts_np.shape} do not form one array")
     blob = b"\x00".join(str(nm).encode("utf-8") for nm in names)
     ver = str(ska_version).encode("utf-8")
+    stats = np.zeros(2, dtype=np.int64)
     rcv = _lib().ska_host_save(
         path.encode(), keys_np.ctypes.data_as(_u64p), n, int(W),
         var.ctypes.data_as(_u8p), var.shape[1],
         counts_np.ctypes.data_as(_u64p), blob, len(blob), len(names),
-        int(k), 1 if rc else 0, ver, len(ver))
+        int(k), 1 if rc else 0, ver, len(ver), stats.ctypes.data_as(_i64p))
     if rcv != 0:
         raise OSError(f"skf save: could not write {path} (code {rcv})")
+    return int(stats[0]), int(stats[1])
 
 
 def aln_write(ref_concat, chrom_len, m_chrom, m_pos, bases, half,

@@ -2,12 +2,21 @@
 reference's serde/ciborium/snap stack (merge_ska_array.rs:108-126,191-204);
 the port's copy of ska_tpu/io/skf.py.
 
-``save`` is one pass of the host library (csrc/host/save.cpp): field
-order and inner ndarray layout ({"v":1,"dim":[r,c],"data":[...]}) match
-serde's output, u128 keys (k > 31) are CBOR positive bignums as ciborium
-encodes them, and the snappy chunks come from the same greedy compressor
-as the JAX package's, so both packages write the same bytes.
+``save`` is the host library's writer (csrc/host/save.cpp), which
+encodes and compresses on SKA_THREADS threads: field order and inner
+ndarray layout ({"v":1,"dim":[r,c],"data":[...]}) match serde's output,
+u128 keys (k > 31) are CBOR positive bignums as ciborium encodes them,
+and the snappy chunks come from the same greedy compressor as the JAX
+package's, so its bytes equal those of the JAX package's serial writer
+at any thread count.
+
+Counters of the writer (``torchinit.save_counts``, zeroed with the
+launch counters): ``saved_files``, the `.skf` files written;
+``save_chunks``, their 64 KiB snappy framing chunks; ``save_threads``,
+the most threads one save used.
 """
+
+import threading
 
 import numpy as np
 from torch.profiler import record_function
@@ -16,13 +25,24 @@ from ..array import SkaArray
 from ..ops import npkeys as K
 from . import cbor, native, snappy
 
+saved_files = 0
+save_chunks = 0
+save_threads = 0
+_counts_lock = threading.Lock()  # saves may run in threads at once
+
 
 def save(arr: SkaArray, path: str, add_suffix: bool = True):
     """add_suffix mirrors save_skf/delete (generic_modes.rs:270-283,200-204)."""
+    global saved_files, save_chunks, save_threads
     if add_suffix and not path.endswith(".skf"):
         path = path + ".skf"
-    native.skf_save(path, arr.keys, arr.variants, arr.counts, arr.names,
-                    arr.k, arr.rc, arr.ska_version)
+    chunks, threads = native.skf_save(
+        path, arr.keys, arr.variants, arr.counts, arr.names, arr.k, arr.rc,
+        arr.ska_version)
+    with _counts_lock:
+        saved_files += 1
+        save_chunks += chunks
+        save_threads = max(save_threads, threads)
     return path
 
 

@@ -9,12 +9,13 @@ Tests pass ``cpu``.
 Each hand-written kernel's wrapper keeps a plain integer that it adds
 one to where it launches its kernel, and nowhere else;
 ``launch_counts`` reads them all and ``reset_launch_counts`` zeroes them,
-and the chunked build's counters (``chunk_counts``) with them.
+and the chunked build's counters (``chunk_counts``) and the `.skf`
+writer's (``save_counts``) with them.
 
 SKA_DISPATCH_STATS=1 (the counterpart of ska_tpu/jaxinit.py's switch)
 prints one stderr line when the process exits:
 
-    SKA_DISPATCH_STATS {"kernel_launches": N, "launches": {...}, "kernel_builds": B, "chunked": {...}}
+    SKA_DISPATCH_STATS {"kernel_launches": N, "launches": {...}, "kernel_builds": B, "chunked": {...}, "save": {...}}
 
 ``launches`` is ``launch_counts()`` at exit and ``kernel_launches`` their
 sum: the hand-written kernels' launches, the port's counterpart of the
@@ -23,7 +24,9 @@ which nothing here counts). ``kernel_builds`` is the compiler runs that
 ``kernels`` made in this process, nvcc and g++ together, the counterpart
 of its backend compiles. ``chunked`` is ``chunk_counts()`` at exit: the
 samples built in chunks, their chunks and the rows the chunks handed to
-the host merge (sample.py). Every compute module imports this one, so the
+the host merge (sample.py). ``save`` is ``save_counts()`` at exit: the
+`.skf` files written, their snappy framing chunks and the most threads
+one save used (io/skf.py). Every compute module imports this one, so the
 CLI, webapi and graft_entry all report it. The line has the form of the
 JAX package's, which scripts/bench_cmds.py's ``_STATS_RE`` matches, but
 that script runs the JAX CLI: the port's line is for whoever runs a
@@ -69,13 +72,25 @@ def chunk_counts() -> dict:
             "chunks": sample.chunks, "chunk_rows": sample.chunk_rows}
 
 
+def save_counts() -> dict:
+    """The `.skf` writer's counters since the last reset_launch_counts():
+    files written, their framing chunks, and the most threads one save
+    used."""
+    from .io import skf
+
+    return {"files": skf.saved_files, "chunks": skf.save_chunks,
+            "max_threads": skf.save_threads}
+
+
 def reset_launch_counts():
     from . import sample
+    from .io import skf
     from .ops import lookup, sort
 
     sort.radix_launches = 0
     lookup.lower_bound_launches = 0
     sample.chunked_samples = sample.chunks = sample.chunk_rows = 0
+    skf.saved_files = skf.save_chunks = skf.save_threads = 0
 
 
 def _print_dispatch_stats():
@@ -84,7 +99,8 @@ def _print_dispatch_stats():
 
     launches = launch_counts()
     stats = {"kernel_launches": sum(launches.values()), "launches": launches,
-             "kernel_builds": kernels.builds, "chunked": chunk_counts()}
+             "kernel_builds": kernels.builds, "chunked": chunk_counts(),
+             "save": save_counts()}
     print("SKA_DISPATCH_STATS " + json.dumps(stats), file=sys.stderr)
 
 

@@ -6,6 +6,8 @@ from its own C++ host library), and imports nothing of ska_tpu:
 
 - io.skf.save writes the bytes of ska_tpu.io.skf.save, and io.skf.load
   reads them back, at W=1 and W=2 (u128 keys) with 1 and 5 samples;
+  with 21 samples over many framing chunks, and empty, at SKA_THREADS
+  1, 2 and 8; and from two threads at once;
 - merge.extend_arrays equals ska_tpu.merge.extend_arrays;
 - api.align writes the bytes of ska_tpu.api.align for every filter;
 - kernels.build_host rebuilds the library when a header is newer;
@@ -18,6 +20,8 @@ import ctypes
 import io
 import os
 import shutil
+import sys
+import threading
 
 import numpy as np
 import pytest
@@ -31,6 +35,7 @@ from ska_tpu_torch import kernels
 from ska_tpu_torch import array as tarray
 from ska_tpu_torch import merge as tmerge
 from ska_tpu_torch.io import skf as tskf
+from ska_tpu_torch.io import snappy as tsnappy
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BASES = np.frombuffer(b"ACGTACGTACGTRYKMSWN--------", np.uint8)
@@ -69,6 +74,67 @@ def test_skf_save_bytes_match_jax(tmp_path, W, S):
     b = jskf.save(ref, str(tmp_path / "ref"))
     with open(a, "rb") as fa, open(b, "rb") as fb:
         assert fa.read() == fb.read()
+
+
+@pytest.mark.parametrize("threads", ["1", "2", "8"])
+@pytest.mark.parametrize("W,n", [(1, 60000), (2, 60000), (1, 0), (2, 0)])
+def test_skf_save_many_chunks_match_jax(tmp_path, monkeypatch, W, n, threads):
+    """The writer encodes and compresses on SKA_THREADS threads and
+    writes the JAX package's serial bytes at any count: 60,000 rows of
+    21 samples fill ~50 framing chunks, the last one partial, and an
+    empty array one."""
+    monkeypatch.setenv("SKA_THREADS", threads)
+    port, ref = _arrays(W * 100 + n % 7, n, W, 21)
+    a = tskf.save(port, str(tmp_path / "port"))
+    b = jskf.save(ref, str(tmp_path / "ref"))
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        got = fa.read()
+        assert got == fb.read()
+    cbor_len = len(tsnappy.frame_decompress(got))
+    if n:
+        assert cbor_len > 40 * 65536 and cbor_len % 65536
+    else:
+        assert cbor_len < 65536
+
+
+def test_skf_saves_in_two_threads_at_once(tmp_path, monkeypatch):
+    """Two Python threads save different arrays at once, each on a pool
+    of its own (ctypes drops the GIL), four times each: every file holds
+    the JAX package's bytes of its array, and the writer's file counter
+    loses no update."""
+    monkeypatch.setenv("SKA_THREADS", "4")
+    pairs = [_arrays(200 + W, 20000, W, 21) for W in (1, 2)]
+    want = []
+    for t, (_, ref) in enumerate(pairs):
+        with open(jskf.save(ref, str(tmp_path / f"ref{t}")), "rb") as f:
+            want.append(f.read())
+    reps = 4
+    errors = []
+
+    def saver(t):
+        try:
+            for r in range(reps):
+                path = tskf.save(pairs[t][0], str(tmp_path / f"port{t}_{r}"))
+                with open(path, "rb") as f:
+                    if f.read() != want[t]:
+                        errors.append(f"thread {t}, save {r}: bytes differ")
+        except Exception as e:  # noqa: BLE001 - reported by the assert below
+            errors.append(repr(e))
+
+    files_before = tskf.saved_files
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=saver, args=(t,)) for t in (0, 1)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(th.is_alive() for th in threads)
+    assert errors == []
+    assert tskf.saved_files - files_before == 2 * reps
 
 
 @pytest.mark.parametrize("W,S", [(1, 1), (1, 5), (2, 1), (2, 5)])

@@ -10,8 +10,9 @@ SKA_DISPATCH_STATS):
   rank writes its own, a rank with nothing to do too.
 - SKA_DISPATCH_STATS=1: one stderr line at exit that
   scripts/bench_cmds.py's _STATS_RE reads, with the hand-written
-  kernels' launches (0 on the CPU) and the compiler runs of the process;
-  none and no exit hook without it. `kernels.builds` counts a compiler
+  kernels' launches (0 on the CPU), the compiler runs of the process
+  and the .skf writer's files, chunks and threads; none and no exit
+  hook without it. `kernels.builds` counts a compiler
   run and no up-to-date library.
 """
 
@@ -31,7 +32,7 @@ import torch
 
 from ska_tpu_torch import api as tapi
 from ska_tpu_torch import cli, kernels
-from ska_tpu_torch.io import skf
+from ska_tpu_torch.io import skf, snappy
 from ska_tpu_torch.sampletypes import QualOpts
 from test_torch_fastq import _genome, _read_pairs, _write_fastq
 from test_torch_parallel import _free_port, _wait_all
@@ -199,10 +200,12 @@ def test_dispatch_stats_line(inputs, tmp_path, switch):
     assert len(lines) == 1
     stats = json.loads(stats_re.search(lines[0]).group(1))
     assert set(stats) == {"kernel_launches", "launches", "kernel_builds",
-                          "chunked"}
+                          "chunked", "save"}
     assert stats["launches"] == {"radix_sort": 0, "lower_bound": 0}
     assert stats["chunked"] == {"chunked_samples": 0, "chunks": 0,
                                 "chunk_rows": 0}
+    assert stats["save"]["files"] == 1
+    assert stats["save"]["chunks"] >= stats["save"]["max_threads"] >= 1
     assert stats["kernel_launches"] == 0
     assert isinstance(stats["kernel_builds"], int) and stats["kernel_builds"] >= 0
 
@@ -228,6 +231,31 @@ def test_dispatch_stats_count_chunks(inputs, tmp_path, monkeypatch):
     want = torchinit.chunk_counts()
     assert want["chunked_samples"] == 1 and want["chunks"] >= 3
     assert stats["chunked"] == want
+
+
+def test_dispatch_stats_count_the_save(tmp_path):
+    """A build whose .skf spans many framing chunks prints, under
+    SKA_DISPATCH_STATS=1, one file written, the chunks of its CBOR text
+    (ceil(bytes / 65536)) and the threads the writer used: as many as
+    SKA_THREADS allows."""
+    rng = np.random.default_rng(18)
+    samples = []
+    for i in range(3):
+        path = tmp_path / f"g{i}.fa"
+        path.write_bytes(b">g\n" + _genome(rng, 40000).tobytes() + b"\n")
+        samples.append(str(path))
+    os.makedirs(tmp_path / "out")
+    out = str(tmp_path / "out" / "out")
+    r = _port(["build", "-k", "17", "-o", out, *samples],
+              SKA_DISPATCH_STATS="1", SKA_THREADS="4")
+    assert r.returncode == 0, r.stderr.decode()[-2000:]
+    (line,) = [ln for ln in r.stderr.splitlines() if _stats_re().search(ln)]
+    stats = json.loads(_stats_re().search(line).group(1))
+    with open(out + ".skf", "rb") as f:
+        cbor_len = len(snappy.frame_decompress(f.read()))
+    chunks = -(-cbor_len // 65536)
+    assert chunks > 4
+    assert stats["save"] == {"files": 1, "chunks": chunks, "max_threads": 4}
 
 
 @pytest.mark.parametrize("switch", ["1", None])
