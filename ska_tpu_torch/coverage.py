@@ -26,8 +26,8 @@ from .ops import keys as K
 from .ops import pipeline as P
 from .ops import segment as S
 from .ops.npkeys import width_for_k
-from .sample import (_bucket, _chunk_views, _max_chunk_bases, _stage_slice,
-                     key_totals)
+from .sample import (_bucket, _chunk_views, _max_chunk_bases, _stage_raw,
+                     _valid_bases, key_totals)
 from .torchinit import get_device
 
 MAX_COUNT = 1000
@@ -36,12 +36,12 @@ INIT_W0 = 0.8
 INIT_C = 20.0
 
 
-def _hist_from_raw(seq, rec_ends, k, rc, W):
-    """Device masks + extraction + count histogram of one (L,) sample
-    from raw sequence bytes (quality ignored, coverage.rs:102)."""
-    valid, _, rec_last = P.device_masks(seq[None], None, rec_ends[None],
-                                        False, False)
-    res = X.extract_windows(seq[None], valid, rec_last, k, rc, W)
+def _hist_from_raw(seqs, rec_ends, k, rc, W):
+    """Device masks + extraction + count histogram of one sample staged
+    as a (1, L) row of raw sequence bytes (quality ignored,
+    coverage.rs:102)."""
+    valid, _, rec_last = P.device_masks(seqs, None, rec_ends, False, False)
+    res = X.extract_windows(seqs, valid, rec_last, k, rc, W)
     return S.count_histogram(res["key"][0], res["emit"][0], MAX_COUNT)
 
 
@@ -76,9 +76,8 @@ class CoverageHistogram:
         if L + k + 1 > cap:
             self.counts = _chunked_hist(batch, k, rc, W, cap, dev)
         else:
-            seq, _, rec_ends = _stage_slice(batch, 0, L, _bucket(L + k + 1),
-                                            None)
-            hist = _hist_from_raw(torch.from_numpy(seq).to(dev),
+            seqs, _, rec_ends, _ = _stage_raw([batch], _bucket(L + k + 1))
+            hist = _hist_from_raw(torch.from_numpy(seqs).to(dev),
                                   torch.from_numpy(rec_ends).to(dev), k, rc, W)
             self.counts = hist.cpu().numpy().astype(np.int64)
 
@@ -270,13 +269,13 @@ def _chunked_hist(batch, k, rc, W, cap, dev):
     summed across k-1-overlap slices, then binned (same rules as
     ops.segment.count_histogram: bin[c-1] for c <= MAX_COUNT)."""
     Lp = _bucket(cap + k + 1)
-    valid_full = ((batch.seq & 0xF) != 14) & (batch.seq != 0)
+    valid_full = _valid_bases(batch.seq)
     kparts, cparts = [], []
     for a, b, end in _chunk_views(batch, k, cap, valid_full):
-        seq, _, rec_ends = _stage_slice(batch, a, end, Lp, None)
+        seqs, _, rec_ends, _ = _stage_raw([batch.slice(a, end)], Lp)
         skeys, is_start, counts = P.chunk_key_counts_from_raw(
-            torch.from_numpy(seq).to(dev), torch.from_numpy(rec_ends).to(dev),
-            k, rc, W)
+            torch.from_numpy(seqs[0]).to(dev),
+            torch.from_numpy(rec_ends[0]).to(dev), k, rc, W)
         sel = is_start.cpu().numpy()
         kparts.append(K.to_numpy_keys(skeys)[sel])
         cparts.append(counts.cpu().numpy()[sel].astype(np.int64))

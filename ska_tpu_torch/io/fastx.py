@@ -106,6 +106,14 @@ class SeqBatch:
     has_qual: bool
     n_records: int
 
+    def slice(self, a: int, end: int) -> "SeqBatch":
+        """Positions [a, end) as a batch of their own, viewing this one's
+        arrays; n_records counts the records that end inside it."""
+        rec_last = self.rec_last[a:end]
+        return SeqBatch(seq=self.seq[a:end], qual=self.qual[a:end],
+                        rec_last=rec_last, has_qual=self.has_qual,
+                        n_records=int(np.count_nonzero(rec_last)))
+
 
 def build_batch(seqs, quals=None) -> SeqBatch:
     """Concatenate records with zero-byte separators into a SeqBatch.
@@ -125,10 +133,11 @@ def build_batch(seqs, quals=None) -> SeqBatch:
     if has_qual:
         # records WITHOUT quality in a mixed batch (e.g. a FASTA mate in
         # a FASTQ pair) fill with 0xFF — out of band for PHRED+33
-        # (printable ASCII only) — which _masks treats as always-passing,
-        # matching the reference's `qual: None => true` per-record rule
-        # (split_kmer.rs:66-71); a zero fill would fail every quality
-        # check and silently drop the record's k-mers under strict
+        # (printable ASCII only) — which sample._qual_pass treats as
+        # always-passing, matching the reference's `qual: None => true`
+        # per-record rule (split_kmer.rs:66-71); a zero fill would fail
+        # every quality check and silently drop the record's k-mers
+        # under strict
         quals_b = [
             bytes(q) if q is not None else b"\xff" * len(s)
             for q, s in zip(quals, seqs_b)

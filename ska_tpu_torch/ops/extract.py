@@ -70,12 +70,12 @@ def pack_n(codes_limbs, n: int):
 
 
 def extract_windows(seq, valid, rec_last, k: int, rc: bool, W: int,
-                    want_whole: bool = False, from_codes: bool = False):
+                    want_whole: bool = False):
     """All split k-mer windows of an (S, L) batch of flat record batches.
 
-    seq: uint8 (S, L) ASCII, or 2-bit codes when from_codes; valid: bool
-    (S, L) base validity; rec_last: bool (S, L) marks each record's final
-    base. Returns a dict of per-window-start tensors:
+    seq: uint8 (S, L) ASCII; valid: bool (S, L) base validity; rec_last:
+    bool (S, L) marks each record's final base. Returns a dict of
+    per-window-start tensors:
       key   (S, L, W) int64 canonical packed split k-mer
       mid   uint8 (S, L) 2-bit middle base code (canonical orientation)
       is_rc bool (S, L) canonical is the reverse complement
@@ -85,7 +85,7 @@ def extract_windows(seq, valid, rec_last, k: int, rc: bool, W: int,
     """
     S, L = seq.shape
     h = (k - 1) // 2
-    codes = (seq if from_codes else (seq >> 1) & 3).to(torch.int64)
+    codes = ((seq >> 1) & 3).to(torch.int64)
     codes_limbs = torch.zeros((S, L, W), dtype=torch.int64, device=seq.device)
     codes_limbs[..., W - 1] = codes
 

@@ -5,11 +5,21 @@ the in-memory API of webapi.py), with the port's copies of their host
 helpers.
 
 Host parsing, grouping by (padded length, reads, quality gates), the
-batch size (``_auto_max_batch``), power-of-two batch padding, the packed
-staging and the chunking of samples over the dispatch cap
-(``_chunk_views``) are copies of the JAX package's functions, so every
-batch, every chunk and every output byte lines up with it. The batches
-and chunks then run on the port's device pipelines (ops/pipeline.py).
+batch size (``_auto_max_batch``) and the chunking of samples over the
+dispatch cap (``_chunk_views``) are copies of the JAX package's
+functions, so every batch, every chunk and every output byte lines up
+with it. The batches and chunks then run on the port's device pipelines
+(ops/pipeline.py).
+
+Every device pass, merged, per-sample, sharded, chunked and ``cov``'s,
+takes one staged form, ``_stage_raw``'s: the sequence bytes, packed
+quality-pass bits and record-end positions, 1-1.125 bytes a base; the
+masks derive on the card (``ops.pipeline.device_masks``). The JAX
+package's merged build ships 2-bit codes and validity bits instead and
+pads its batch axis to a power of two: the first for the ~25 MB/s relay
+between it and its TPU, the second because XLA compiles once a shape.
+The port's card has no relay in between and torch compiles nothing per
+shape, so neither is copied: a merged batch is its samples' rows alone.
 
 Each step runs inside a ``torch.profiler.record_function`` span named
 ``ska::<step>`` (parse, stage, to_device, device_pass, to_host; api.py
@@ -89,21 +99,33 @@ def _subsample_reads(ff: fastx.FastxFile, proportion_reads):
     return out
 
 
+def _valid_bases(seq):
+    """The reference's valid_base rule on the host (bit_encoding.rs:52-54):
+    not N and not a separator or padding byte; other IUPAC letters
+    2-bit-project (quirk preserved). ops.pipeline.device_masks is its
+    device copy."""
+    return ((seq & 0xF) != 14) & (seq != 0)
+
+
+def _qual_pass(qual, min_qual: int):
+    """Quality pass of each base: PHRED (byte - 33) over min_qual, or the
+    0xFF that marks a record without qualities in a mixed batch
+    (fastx.build_batch), which passes like the reference's `qual: None
+    => true` (split_kmer.rs:66-71). Compared on the bytes themselves:
+    byte - 33 > min_qual is byte > 33 + min_qual."""
+    thr = 33 + int(min_qual)
+    if thr < 0:
+        return np.ones(len(qual), bool)
+    return (qual > min(thr, 255)) | (qual == 0xFF)
+
+
 def _masks(batch: fastx.SeqBatch, qual: QualOpts, is_reads: bool):
-    """Base validity and middle-quality masks (host precompute)."""
-    seq = batch.seq
-    base_ok = ((seq & 0xF) != 14) & (seq != 0)
-    if batch.has_qual:
-        # 0xFF marks a record with no quality scores in a mixed batch
-        # (fastx.build_batch): always passes, like the reference's
-        # `qual: None => true` (split_kmer.rs:66-71)
-        qual_ok = ((batch.qual.astype(np.int16) - 33) > qual.min_qual) | (
-            batch.qual == 0xFF
-        )
-    else:
-        qual_ok = np.ones(len(seq), dtype=bool)
-    strict_valid = _gates(is_reads, batch.has_qual, qual)[1]
-    return (base_ok & qual_ok if strict_valid else base_ok), qual_ok
+    """Base validity of a whole sample on the host, with the quality pass
+    under strict validity: the chunked build's boundary oracle."""
+    valid = _valid_bases(batch.seq)
+    if _gates(is_reads, batch.has_qual, qual)[1]:
+        valid &= _qual_pass(batch.qual, int(qual.min_qual))
+    return valid
 
 
 def _gates(is_reads: bool, has_qual: bool, qual: QualOpts):
@@ -224,15 +246,13 @@ def dict_from_batch(batch: fastx.SeqBatch, k: int, rc: bool, qual: QualOpts,
 def _auto_max_batch(Lp: int) -> int:
     """Samples per merged dispatch, as the JAX package chooses them:
     scale inversely with the padded length under a ~128M-base budget,
-    at most 32. SKA_MAX_BATCH overrides."""
+    at most 32. SKA_MAX_BATCH overrides. A batch runs as exactly its
+    samples' rows: the JAX package pads it to a power of two so that XLA
+    compiles few shapes, and torch compiles nothing per shape."""
     env = os.environ.get("SKA_MAX_BATCH")
     if env:
         return max(1, int(env))
     eff = max(1, min(32, (1 << 27) // max(Lp, 1)))
-    # The dispatch pads the batch axis up to the next power of two, so a
-    # non-power-of-two here would silently double the device work (e.g.
-    # 17 samples padded to 32 rows). Round down to a power of two.
-    eff = 1 << (eff.bit_length() - 1)
     # The merged pipeline's variants scatter is an (S*Lp, S) buffer.
     # Cap it at 1 GB, which also keeps the scatter's int32 index space
     # (rows * S + sample < 2^31) safe: 32 x 4 Mb genomes would otherwise
@@ -256,47 +276,13 @@ def _check_all_present(var_np, n_rows, paths):
             raise ValueError(f"{path} has no valid sequence")
 
 
-def _stage_packed(batches, Lp, min_qual=0):
-    """Host staging for the packed-transfer device path: 2-bit base
-    codes (4 per byte, first base in bits 7-6), packed per-base validity
-    bits (not-N and not-padding, the reference's valid_base rule
-    bit_encoding.rs:52-54 — other IUPAC letters 2-bit-project, quirk
-    preserved), packed quality-pass bits, and record-end indices.
-    0.375 bytes/base crosses the link for FASTA (vs 1 raw byte), 0.5
-    for FASTQ. Lp must be a multiple of 8 (pow2 buckets are).
-    """
-    S = len(batches)
-    has_qual = all(bool(b.has_qual) for b in batches)
-    seq2 = np.zeros((S, Lp // 4), np.uint8)
-    valid_bits = np.zeros((S, Lp // 8), np.uint8)
-    qual_bits = np.zeros((S, Lp // 8 if has_qual else 1), np.uint8)
-    Eb = _bucket_min(max(int(b.rec_last.sum()) for b in batches), 16)
-    rec_ends = np.full((S, Eb), Lp, np.int32)
-    for i, b in enumerate(batches):
-        L = len(b.seq)
-        seq = np.zeros(Lp, np.uint8)
-        seq[:L] = b.seq
-        codes = (seq >> 1) & 3
-        seq2[i] = (
-            (codes[0::4] << 6) | (codes[1::4] << 4)
-            | (codes[2::4] << 2) | codes[3::4]
-        )
-        valid_bits[i] = np.packbits(((seq & 0xF) != 14) & (seq != 0))
-        if has_qual:
-            ok = np.zeros(Lp, bool)
-            ok[:L] = ((b.qual.astype(np.int16) - 33) > min_qual) | (
-                b.qual == 0xFF
-            )
-            qual_bits[i] = np.packbits(ok)
-        ends = np.flatnonzero(b.rec_last).astype(np.int32)
-        rec_ends[i, : len(ends)] = ends
-    return seq2, valid_bits, qual_bits, rec_ends, has_qual
-
-
 def _stage_raw(batches, Lp, min_qual=0):
-    """Host staging for the raw-bytes device path: sequence bytes,
-    packed per-base quality-pass bits and record-end indices; the masks
-    derive on the device (ops.pipeline.device_masks)."""
+    """The one staged form of every device pass: (seqs (S, Lp) uint8
+    sequence bytes, 0 = padding; qual_bits (S, ceil(Lp/8)) uint8,
+    np.packbits of the quality pass, or an (S, 1) dummy unless every
+    batch has qualities; rec_ends (S, E) int32 record-final positions,
+    Lp = padding; has_qual). The masks derive on the device
+    (ops.pipeline.device_masks)."""
     S = len(batches)
     has_qual = all(bool(b.has_qual) for b in batches)
     seqs = np.zeros((S, Lp), np.uint8)
@@ -307,12 +293,8 @@ def _stage_raw(batches, Lp, min_qual=0):
         L = len(b.seq)
         seqs[i, :L] = b.seq
         if has_qual:
-            # the reference's `qual: None => true` 0xFF rule
-            # (split_kmer.rs:66-71); padding packs to 0
-            ok = np.zeros(Lp, bool)
-            ok[:L] = ((b.qual.astype(np.int16) - 33) > min_qual) | (
-                b.qual == 0xFF
-            )
+            ok = np.zeros(Lp, bool)  # padding packs to 0
+            ok[:L] = _qual_pass(b.qual, min_qual)
             qual_bits[i] = np.packbits(ok)
         ends = np.flatnonzero(b.rec_last).astype(np.int32)
         rec_ends[i, : len(ends)] = ends
@@ -361,14 +343,14 @@ def _big_batch(input_files, i, keys_sets):
 
 
 def build_samples_merged(input_files, k: int, rc: bool, qual,
-                         proportion_reads=None, max_batch=None, device=None):
+                         proportion_reads=None, device=None):
     """Build and merge a cohort of FASTA and/or FASTQ samples.
 
     Samples over the dispatch cap (SKA_MAX_CHUNK_BASES) build one by one
     in chunks (dict_from_batch_chunked); the others are grouped by
     (padded length, reads, middle-quality gate, qualities) and run one
-    device pass per batch. Returns the list of (input indices, names,
-    keys, variants, counts) batch results that
+    device pass per batch (merged_build_from_raw). Returns the list of
+    (input indices, names, keys, variants, counts) batch results that
     ska_tpu.sample.build_samples_merged returns; api.build unions them
     and restores the input column order.
     """
@@ -386,32 +368,24 @@ def build_samples_merged(input_files, k: int, rc: bool, qual,
         bar.update(1)
     for (Lp, is_reads, use_mq, has_qual), idxs in groups.items():
         _, strict_valid = _gates(is_reads, has_qual, qual)
-        eff_batch = max_batch or _auto_max_batch(Lp)
+        eff_batch = _auto_max_batch(Lp)
         for c0 in range(0, len(idxs), eff_batch):
             chunk = idxs[c0 : c0 + eff_batch]
-            # the batch axis is padded to a power of two, as in the JAX
-            # package; pad rows are all-zero bytes and produce no k-mers
-            S = 1 << (len(chunk) - 1).bit_length()
             with record_function("ska::stage"):
-                staged = _stage_packed(
-                    [prepared[i][0] for i in chunk], Lp, int(qual.min_qual)
-                )
-                padded = []
-                for a, fill in zip(staged[:4], (0, 0, 0, Lp)):
-                    rows = np.full((S, a.shape[1]), fill, a.dtype)
-                    rows[: len(chunk)] = a
-                    padded.append(torch.from_numpy(rows))
+                staged = _stage_raw([prepared[i][0] for i in chunk], Lp,
+                                    int(qual.min_qual))
             with record_function("ska::to_device"):
-                padded = [x.to(dev) for x in padded]
+                seqs, qual_bits, rec_ends = (torch.from_numpy(x).to(dev)
+                                             for x in staged[:3])
             with record_function("ska::device_pass"):
-                ukeys, variants4, _counts, n_rows = P.merged_build_from_packed(
-                    *padded, k, rc, W, is_reads, use_mq, int(qual.min_count),
-                    strict_valid, has_qual,
+                ukeys, variants4, _counts, n_rows = P.merged_build_from_raw(
+                    seqs, qual_bits, rec_ends, k, rc, W, is_reads, use_mq,
+                    int(qual.min_count), strict_valid, has_qual,
                 )
                 n = int(n_rows)
             with record_function("ska::to_host"):
                 keys_np = K.to_numpy_keys(ukeys[:n])
-                # 4-bit packed codes -> ASCII, dropping the batch pad columns
+                # 4-bit packed codes -> ASCII
                 var_np = P.unpack_variants4(variants4[:n].cpu().numpy(),
                                             len(chunk))
                 # counted on the host from the matrix, as the JAX package does
@@ -526,25 +500,6 @@ def _chunk_views(batch: fastx.SeqBatch, k: int, cap: int, valid=None):
         a = b
 
 
-def _stage_slice(batch: fastx.SeqBatch, a: int, end: int, Lp: int, qual_ok):
-    """Raw-bytes staging of the slice [a, end) of one sample, padded to
-    Lp: sequence bytes, packed quality-pass bits (an (1,) dummy without
-    qualities) and record-final positions (Lp = padding); the masks
-    derive on the device (ops.pipeline.device_masks)."""
-    n = end - a
-    seq = np.zeros(Lp, np.uint8)
-    seq[:n] = batch.seq[a:end]
-    qch = np.zeros((Lp + 7) // 8 if batch.has_qual else 1, np.uint8)
-    if batch.has_qual:
-        ok = np.zeros(Lp, bool)
-        ok[:n] = qual_ok[a:end]
-        qch = np.packbits(ok)
-    ends = np.flatnonzero(batch.rec_last[a:end]).astype(np.int32)
-    rec_ends = np.full(_bucket_min(len(ends), 16), Lp, np.int32)
-    rec_ends[: len(ends)] = ends
-    return seq, qch, rec_ends
-
-
 def key_totals(keys, counts):
     """Sum the counts of equal keys. keys (n, W) uint64, counts (n,).
     Returns (order, first, totals): the keys' lexicographic order, the
@@ -577,7 +532,7 @@ def dict_from_batch_chunked(batch: fastx.SeqBatch, k: int, rc: bool,
     dev = get_device(device)
     W = width_for_k(k)
     with record_function("ska::stage"):
-        valid_full, qual_full = _masks(batch, qual, is_reads)
+        valid_full = _masks(batch, qual, is_reads)
     use_mq, strict_valid = _gates(is_reads, batch.has_qual, qual)
     want_count = bool(is_reads and qual.min_count > 1)
     Lp = _bucket(cap + k + 1)
@@ -588,14 +543,15 @@ def dict_from_batch_chunked(batch: fastx.SeqBatch, k: int, rc: bool,
     for a, b, end in _chunk_views(batch, k, cap, valid_full):
         # the host-side valid_full is only the chunk-boundary oracle
         with record_function("ska::stage"):
-            staged = _stage_slice(batch, a, end, Lp, qual_full)
+            staged = _stage_raw([batch.slice(a, end)], Lp, int(qual.min_qual))
         with record_function("ska::to_device"):
-            seq, qch, rec_ends = (torch.from_numpy(x).to(dev) for x in staged)
+            seqs, qual_bits, rec_ends = (torch.from_numpy(x).to(dev)
+                                         for x in staged[:3])
         if want_count:
             with record_function("ska::device_pass"):
                 swk, is_start, counts, spacked, nu = P.chunk_count_from_raw(
-                    seq, qch, rec_ends, k, rc, W, use_mq, strict_valid,
-                    has_qual,
+                    seqs[0], qual_bits[0], rec_ends[0], k, rc, W, use_mq,
+                    strict_valid, has_qual,
                 )
                 int(nu)  # the copies below wait for the card anyway
             with record_function("ska::to_host"):
@@ -607,15 +563,15 @@ def dict_from_batch_chunked(batch: fastx.SeqBatch, k: int, rc: bool,
             pparts.append(pk)
         else:
             with record_function("ska::device_pass"):
-                sp, union, is_end, nu = P.sample_from_raw(
-                    seq, qch, rec_ends, k, rc, W, is_reads, use_mq, 0,
+                sp, union, is_end, nu = P.batched_from_raw(
+                    seqs, qual_bits, rec_ends, k, rc, W, is_reads, use_mq, 0,
                     strict_valid, has_qual,
                 )
-                int(nu)
+                int(nu[0])
             with record_function("ska::to_host"):
-                kk, ss = P.unpack_host(K.to_numpy_keys(sp),
-                                       union.cpu().numpy(),
-                                       is_end.cpu().numpy(), W)
+                kk, ss = P.unpack_host(K.to_numpy_keys(sp[0]),
+                                       union[0].cpu().numpy(),
+                                       is_end[0].cpu().numpy(), W)
             kparts.append(kk)
             sparts.append(ss)
     chunked_samples += 1

@@ -1,7 +1,8 @@
 """The port's `ska build` / `ska align` end to end on the CPU:
 
 - ska_tpu_torch.api.build writes the same .skf bytes as ska_tpu.api.build
-  (the JAX pipeline) on a random cohort and on tests/data/bubble_*.fa;
+  (the JAX pipeline) on a random cohort and on tests/data/bubble_*.fa,
+  and in merged batches of 3 and 2 rows under SKA_MAX_BATCH=3;
 - `python -m ska_tpu_torch build` then `align --device cpu` in a
   subprocess give the bytes of `./ska.py build` / `align`, and import
   neither jax nor ska_tpu.
@@ -34,15 +35,16 @@ def _pin_jax_path(monkeypatch):
         monkeypatch.setenv(var, val)
 
 
-def _random_cohort(tmp_path, seed=0):
+def _random_cohort(tmp_path, seed=0, short=1200):
     """Related genomes of two lengths (two length groups, so batches
-    permute the columns) with SNPs, IUPAC letters, N runs, 2 records."""
+    permute the columns; one group when short is 3000) with SNPs, IUPAC
+    letters, N runs, 2 records."""
     rng = np.random.default_rng(seed)
     alphabet = np.frombuffer(b"ACGT", np.uint8)
     base = rng.choice(alphabet, size=3000)
     paths = []
     for s in range(5):
-        g = base[: 3000 if s % 2 else 1200].copy()
+        g = base[: 3000 if s % 2 else short].copy()
         snp = rng.random(len(g)) < 0.01
         g[snp] = rng.choice(alphabet, size=int(snp.sum()))
         g[rng.integers(0, len(g), 3)] = ord("R")
@@ -75,6 +77,30 @@ def test_api_build_skf_bytes_match_jax(tmp_path, cohort, k, rc):
     port = tapi.build(files, k, rc, QUAL, device="cpu")
     ref = japi.build(files, k, rc, QUAL)
     assert port.names == ref.names
+    out_p = skf.save(port, str(tmp_path / "port"))
+    out_r = skf.save(ref, str(tmp_path / "ref"))
+    with open(out_p, "rb") as a, open(out_r, "rb") as b:
+        assert a.read() == b.read()
+
+
+def test_api_build_unpadded_batches_match_jax(tmp_path, monkeypatch):
+    """Five samples of one length group under SKA_MAX_BATCH=3: the port
+    runs batches of exactly 3 and 2 rows (the JAX package pads the first
+    to 4), unions them, and writes the JAX package's .skf bytes."""
+    from ska_tpu_torch.ops import pipeline as TP
+
+    merged, rows = TP.merged_build_from_raw, []
+
+    def counted(seqs, *args):
+        rows.append(seqs.shape[0])
+        return merged(seqs, *args)
+
+    monkeypatch.setattr(TP, "merged_build_from_raw", counted)
+    monkeypatch.setenv("SKA_MAX_BATCH", "3")
+    files = _input_files(_random_cohort(tmp_path, seed=3, short=3000))
+    port = tapi.build(files, 21, True, QUAL, device="cpu")
+    ref = japi.build(files, 21, True, QUAL)
+    assert rows == [3, 2]
     out_p = skf.save(port, str(tmp_path / "port"))
     out_r = skf.save(ref, str(tmp_path / "ref"))
     with open(out_p, "rb") as a, open(out_r, "rb") as b:

@@ -6,10 +6,14 @@
   strand, for a cohort that mixes FASTA and FASTQ samples, for a
   FASTQ/FASTA mate pair, and with SKA_MAX_CHUNK_BASES forcing samples
   through the chunked build;
-- the port's sample_from_raw, chunk_count_pipeline and the reads branch
-  of the merged build equal the JAX functions on the same numpy inputs,
-  compared after unpacking (the JAX sorts there are unstable, so only
-  what they fix is compared);
+- the port's _stage_raw stages the arrays of the JAX package's, for
+  FASTA rows, FASTQ rows with a record without qualities and a chunk's
+  slice of a sample;
+- the port's batched_from_raw (one row), chunk_count_pipeline and the
+  reads branch of the merged build equal the JAX functions on the same
+  numpy inputs (the merged build's on the JAX package's packed staging
+  of the same batches), compared after unpacking (the JAX sorts there
+  are unstable, so only what they fix is compared);
 - a record-final window at a chunk boundary is still emitted.
 """
 
@@ -229,7 +233,7 @@ def test_chunk_counters(tmp_path, monkeypatch, min_count):
     qual = QualOpts(min_count=min_count, min_qual=20, qual_filter=2)
     cap, k = 4096, 17
     batch, is_reads = tsample.prepare_sample(files[0][1:])
-    valid, _ = tsample._masks(batch, qual, is_reads)
+    valid = tsample._masks(batch, qual, is_reads)
     n_chunks = len(list(tsample._chunk_views(batch, k, cap, valid)))
     handed = []  # rows of each chunk's host compaction
 
@@ -288,7 +292,7 @@ def test_chunked_count_build_matches_plain_reference(tmp_path, monkeypatch,
     cap = 16384
     batch, is_reads = tsample.prepare_sample((fwd, rev))
     qual = QualOpts(min_count=5, min_qual=20, qual_filter=2)
-    valid, _ = tsample._masks(batch, qual, is_reads)
+    valid = tsample._masks(batch, qual, is_reads)
     views = list(tsample._chunk_views(batch, k, cap, valid))
     assert len(views) >= 3
     for seg, total in ((kept, 6), (dropped, 4)):
@@ -356,6 +360,62 @@ def _raw_inputs(batch, k, qual):
     return seqs[0], qual_bits[0], rec_ends[0], has_qual
 
 
+def _records(seed, fasta=False):
+    """(sequences, qualities) of a FASTQ sample whose last record has no
+    qualities, or FASTA records of unequal lengths (qualities None)."""
+    rng = np.random.default_rng(seed)
+    fwd, rev = _read_pairs(rng, _genome(rng, 400), 30, 70)
+    if fasta:
+        return [s[: 40 + 7 * i] for i, (s, _) in enumerate(fwd)], None
+    seqs, quals = map(list, zip(*(fwd + rev)))
+    quals[-1] = None  # staged as 0xFF, which always passes
+    return seqs, quals
+
+
+@pytest.mark.parametrize("case,min_qual", [
+    ("fasta", 20), ("fastq_mixed", 20), ("fastq_mixed", -40),
+    ("fastq_mixed", 300), ("chunk_slice", 25),
+])
+def test_stage_raw_matches_jax(case, min_qual):
+    """The port's _stage_raw gives the JAX package's arrays: FASTA rows of
+    unequal lengths (no quality bits), FASTQ rows with a record without
+    qualities at thresholds inside and past the PHRED range, and a
+    one-row slice [a, end) of a FASTQ sample at a _chunk_views boundary,
+    as the chunked build and `cov` stage it."""
+    k = 17
+    if case == "fasta":
+        recs = [_records(s, fasta=True) for s in range(3)]
+        tb = [tsample.fastx.build_batch(r[0][: 3 + s], [None] * (3 + s))
+              for s, r in enumerate(recs)]
+        jb = [jfastx.build_batch(r[0][: 3 + s], [None] * (3 + s))
+              for s, r in enumerate(recs)]
+    else:
+        tb, jb = [], []
+        for s in range(1 if case == "chunk_slice" else 2):
+            seqs, quals = _records(10 + s)
+            tb.append(tsample.fastx.build_batch(seqs, quals))
+            jb.append(jfastx.build_batch(seqs, quals))
+    Lp = jsample._bucket(max(len(b.seq) for b in jb) + k + 1)
+    if case == "chunk_slice":
+        cap = 2048
+        qual = QualOpts(min_count=5, min_qual=min_qual, qual_filter=2)
+        valid = tsample._masks(tb[0], qual, True)
+        views = list(tsample._chunk_views(tb[0], k, cap, valid))
+        assert len(views) >= 3
+        a, _, end = views[1]
+        tb = [tb[0].slice(a, end)]
+        j = jb[0]
+        jb = [jfastx.SeqBatch(seq=j.seq[a:end], qual=j.qual[a:end],
+                              rec_last=j.rec_last[a:end],
+                              has_qual=j.has_qual, n_records=tb[0].n_records)]
+        Lp = jsample._bucket(cap + k + 1)
+    got = tsample._stage_raw(tb, Lp, min_qual)
+    want = jsample._stage_raw(jb, Lp, min_qual)
+    assert got[3] == want[3] == (case != "fasta")
+    for g, w in zip(got[:3], want[:3]):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+
+
 def _gates(qual):
     return qual.qual_filter in (1, 2), qual.qual_filter == 2
 
@@ -371,8 +431,9 @@ def test_sample_pipeline_matches_jax(k, min_count, qual_filter):
     args = (k, True, W, True, use_mq, min_count, strict, has_qual)
     want = JP.sample_from_raw(jnp.asarray(seq), jnp.asarray(qb),
                               jnp.asarray(ends), *args)
-    got = TP.sample_from_raw(torch.from_numpy(seq), torch.from_numpy(qb),
-                             torch.from_numpy(ends), *args)
+    got = [x[0] for x in TP.batched_from_raw(
+        torch.from_numpy(seq[None]), torch.from_numpy(qb[None]),
+        torch.from_numpy(ends[None]), *args)]
     wk, ws = JP.unpack_host(*want[:3], W)
     gk, gs = TP.unpack_host(TK.to_numpy_keys(got[0]), got[1].numpy(),
                             got[2].numpy(), W)
@@ -404,19 +465,22 @@ def test_chunk_count_pipeline_matches_jax(k, qual_filter):
     (1, 9, 3, 2), (2, 11, 2, 1), (3, 31, 5, 2), (2, 45, 2, 0), (2, 13, 1, 1),
 ])
 def test_merged_reads_branch_matches_jax(S, k, min_count, qual_filter):
-    """merged_build_from_packed with is_reads: quality bits, strict
-    validity, the middle-base gate and the per-sample rank filter."""
+    """merged_build_from_raw with is_reads, on the JAX package's raw
+    staging, against its merged_build_from_packed on its packed staging
+    of the same batches: quality bits, strict validity, the middle-base
+    gate and the per-sample rank filter."""
     W = 1 if k <= 31 else 2
     qual = QualOpts(min_count=min_count, min_qual=20, qual_filter=qual_filter)
     batches = [_reads_batch(100 * S + k + s, n_pairs=80) for s in range(S)]
     Lp = jsample._bucket(max(len(b.seq) for b in batches) + k + 1)
-    staged = jsample._stage_packed(batches, Lp, qual.min_qual)
+    packed = jsample._stage_packed(batches, Lp, qual.min_qual)
+    raw = jsample._stage_raw(batches, Lp, qual.min_qual)
     use_mq, strict = _gates(qual)
-    args = (k, True, W, True, use_mq, min_count, strict, staged[4])
-    want = JP.merged_build_from_packed(*(jnp.asarray(x) for x in staged[:4]),
+    args = (k, True, W, True, use_mq, min_count, strict, raw[3])
+    want = JP.merged_build_from_packed(*(jnp.asarray(x) for x in packed[:4]),
                                        *args)
-    got = TP.merged_build_from_packed(
-        *(torch.from_numpy(x) for x in staged[:4]), *args)
+    got = TP.merged_build_from_raw(*(torch.from_numpy(x) for x in raw[:3]),
+                                   *args)
     n = int(np.asarray(want[3]))
     assert n > 0 and int(got[3]) == n
     assert np.array_equal(TK.to_numpy_keys(got[0][:n]), np.asarray(want[0])[:n])

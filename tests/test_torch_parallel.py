@@ -447,8 +447,8 @@ def _serial_port(call, k, min_count):
     t = {n: torch.from_numpy(np.asarray(call[n]))
          for n in ("seqs", "valid", "qual", "rec_last")}
     ukeys, v4, _, n = TP._merged_impl(
-        (t["seqs"] >> 1) & 3, t["valid"], t["qual"], t["rec_last"], k, True,
-        W, bool(call["is_reads"]), bool(call["use_mq"]), min_count)
+        t["seqs"], t["valid"], t["qual"], t["rec_last"], k, True, W,
+        bool(call["is_reads"]), bool(call["use_mq"]), min_count)
     n = int(n)
     var = TP.unpack_variants4(v4[:n].numpy(), len(call["seqs"]))
     return TK.to_numpy_keys(ukeys[:n]), var, (var != ord("-")).sum(axis=1)

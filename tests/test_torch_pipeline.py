@@ -1,5 +1,7 @@
-"""ska_tpu_torch.ops.pipeline.merged_build_from_packed against the JAX
-function on the same ska_tpu.sample._stage_packed inputs: ukeys[:n],
+"""ska_tpu_torch.ops.pipeline.merged_build_from_raw, on the JAX
+package's raw staging (ska_tpu.sample._stage_raw) of a batch, against
+the JAX merged_build_from_packed on its packed staging
+(ska_tpu.sample._stage_packed) of the same batch: ukeys[:n],
 variants4[:n], counts[:n] and n_rows exactly, for S in {1, 2, 5}, k in
 {9, 31, 33, 63}, rc on and off."""
 
@@ -11,7 +13,7 @@ import torch
 from ska_tpu.io import fastx
 from ska_tpu.ops import pipeline as JP
 from ska_tpu.ops.npkeys import width_for_k
-from ska_tpu.sample import _bucket, _stage_packed
+from ska_tpu.sample import _bucket, _stage_packed, _stage_raw
 from ska_tpu_torch.ops import pipeline as TP
 from ska_tpu_torch.ops.keys import to_numpy_keys
 
@@ -50,19 +52,18 @@ def _cohort(S, k, seed):
         (5, 9, False), (1, 63, True), (2, 33, False), (5, 31, False),
     ],
 )
-def test_merged_build_from_packed_matches_jax(S, k, rc):
+def test_merged_build_from_raw_matches_jax(S, k, rc):
     W = width_for_k(k)
     batches = _cohort(S, k, seed=S * 100 + k)
     Lp = _bucket(max(len(b.seq) for b in batches) + k + 1)
-    seq2, vb, qb, re_, has_qual = _stage_packed(batches, Lp, 0)
+    packed = _stage_packed(batches, Lp, 0)
+    seqs, qb, re_, has_qual = _stage_raw(batches, Lp, 0)
     args = (k, rc, W, False, False, 1, False, has_qual)
-    want = JP.merged_build_from_packed(
-        jnp.asarray(seq2), jnp.asarray(vb), jnp.asarray(qb), jnp.asarray(re_),
+    want = JP.merged_build_from_packed(*(jnp.asarray(x) for x in packed[:4]),
+                                       *args)
+    got = TP.merged_build_from_raw(
+        torch.from_numpy(seqs), torch.from_numpy(qb), torch.from_numpy(re_),
         *args,
-    )
-    got = TP.merged_build_from_packed(
-        torch.from_numpy(seq2), torch.from_numpy(vb), torch.from_numpy(qb),
-        torch.from_numpy(re_), *args,
     )
     n = int(np.asarray(want[3]))
     assert n > 0 and int(got[3]) == n
@@ -78,11 +79,11 @@ def test_merged_build_from_packed_matches_jax(S, k, rc):
 def test_fastq_and_oversized_batches_raise():
     """A reads batch builds (an empty one to no rows); an oversized
     batch raises."""
-    seq2 = torch.zeros((1, 256), dtype=torch.uint8)
+    seqs = torch.zeros((1, 1024), dtype=torch.uint8)
     bits = torch.zeros((1, 128), dtype=torch.uint8)
     ends = torch.full((1, 16), 1024, dtype=torch.int32)
-    out = TP.merged_build_from_packed(seq2, bits, bits, ends, 9, True, 1,
-                                      True, True, 3, True, True)
+    out = TP.merged_build_from_raw(seqs, bits, ends, 9, True, 1, True, True,
+                                   3, True, True)
     assert int(out[3]) == 0
     big = torch.zeros((1 << 11, 1 << 10), dtype=torch.uint8)
     with pytest.raises(ValueError, match="SKA_MAX_BATCH"):
