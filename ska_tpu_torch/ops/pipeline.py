@@ -13,7 +13,9 @@
   without a count filter); ``chunk_count_pipeline`` /
   ``chunk_count_from_raw``: one chunk of such a sample under a count
   filter (sample.py's chunked build); ``chunk_key_counts(_from_raw)``:
-  one chunk of chunked ``ska cov``.
+  one chunk of chunked ``ska cov``. ``rows_to_host`` compacts a chunk's
+  outputs on the device and copies only the kept rows to the host
+  (``chunk_counts_to_host``, ``dict_to_host``).
 
 Every pass is fed the raw bytes of sample._stage_raw and derives its
 masks here (``device_masks``). The JAX package's merged build takes
@@ -408,14 +410,43 @@ def chunk_count_from_raw(
     return tuple(x[0] for x in out)
 
 
-def unpack_chunk_counts(swk, is_start, counts, spacked, W):
-    """Host-side compaction of chunk_count_pipeline outputs."""
-    sel = np.asarray(is_start)
-    return (
-        np.asarray(swk)[sel],
-        np.asarray(counts)[sel].astype(np.int64),
-        np.asarray(spacked)[sel],
-    )
+def rows_to_host(sel, *xs):
+    """The rows of each of xs (L, ...) where the (L,) bool sel is True, in
+    order, as numpy arrays, and the bytes that crossed to the host.
+
+    The rows are gathered on xs' device, so only the kept rows cross: from
+    a card into page-locked memory (torch's caching host allocator), every
+    copy queued before one wait; on the CPU the gathered rows are the
+    result. The pipelines' padded outputs never leave the device."""
+    idx = torch.nonzero(sel).squeeze(1)
+    rows = [x.index_select(0, idx) for x in xs]
+    if sel.is_cuda:
+        host = [torch.empty(r.shape, dtype=r.dtype, pin_memory=True)
+                for r in rows]
+        for h, r in zip(host, rows):
+            h.copy_(r, non_blocking=True)
+        torch.cuda.current_stream(sel.device).synchronize()
+        rows = host
+    return ([r.numpy() for r in rows],
+            sum(r.numel() * r.element_size() for r in rows))
+
+
+def chunk_counts_to_host(swk, is_start, counts, spacked):
+    """chunk_count_from_raw's outputs of one chunk at their segment starts
+    (the JAX package's unpack_chunk_counts, compacted on the device):
+    (whole keys (n, W) uint64, counts int64, packed split (n, W) uint64),
+    and the bytes copied, n * (16W + 4)."""
+    (wk, cnt, pk), nbytes = rows_to_host(is_start, swk, counts, spacked)
+    return wk.view(np.uint64), cnt.astype(np.int64), pk.view(np.uint64), nbytes
+
+
+def dict_to_host(sp, union, is_end):
+    """One row of batched_pipeline's outputs as (keys (n, W) uint64, sets
+    uint8) (unpack_host's rows, compacted on the device), and the bytes
+    copied, n * (8W + 1)."""
+    sel = is_end & (sp != _SENT).any(dim=-1)
+    (pk, sets), nbytes = rows_to_host(sel, sp, union)
+    return _shr_np(pk.view(np.uint64)), sets, nbytes
 
 
 def chunk_key_counts(seq, valid, rec_last, k: int, rc: bool, W: int):

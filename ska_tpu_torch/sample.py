@@ -36,7 +36,15 @@ Counters of the chunked build (``torchinit.chunk_counts``, zeroed with
 the launch counters): ``chunked_samples``, the samples built in chunks;
 ``chunks``, the device passes they took; ``chunk_rows``, the rows those
 passes handed to the host merge (whole k-mers under a count filter,
-split k-mers without one).
+split k-mers without one); ``chunk_copy_bytes``, the bytes those rows
+took from the device to the host.
+
+The chunked build compacts each chunk on the card: its pass's padded
+outputs (2^26 rows a chunk at SKA_MAX_CHUNK_BASES) stay on the device,
+the live segment starts (or dictionary rows) are gathered there, and
+only those rows cross, into page-locked host memory
+(``ops.pipeline.rows_to_host``): ``chunk_rows`` x (16W + 4) bytes under
+a count filter, x (8W + 1) without one.
 """
 
 import concurrent.futures as cf
@@ -60,6 +68,7 @@ from .torchinit import get_device
 chunked_samples = 0
 chunks = 0
 chunk_rows = 0
+chunk_copy_bytes = 0
 
 
 def _bucket(n: int) -> int:
@@ -528,7 +537,7 @@ def dict_from_batch_chunked(batch: fastx.SeqBatch, k: int, rc: bool,
     and the threshold applies globally (see
     ops.pipeline.chunk_count_pipeline).
     """
-    global chunked_samples, chunks, chunk_rows
+    global chunked_samples, chunks, chunk_rows, chunk_copy_bytes
     dev = get_device(device)
     W = width_for_k(k)
     with record_function("ska::stage"):
@@ -553,11 +562,10 @@ def dict_from_batch_chunked(batch: fastx.SeqBatch, k: int, rc: bool,
                     seqs[0], qual_bits[0], rec_ends[0], k, rc, W, use_mq,
                     strict_valid, has_qual,
                 )
-                int(nu)  # the copies below wait for the card anyway
+                int(nu)  # the compaction below waits for the card anyway
             with record_function("ska::to_host"):
-                wk, cnt, pk = P.unpack_chunk_counts(
-                    K.to_numpy_keys(swk), is_start.cpu().numpy(),
-                    counts.cpu().numpy(), K.to_numpy_keys(spacked), W)
+                wk, cnt, pk, nbytes = P.chunk_counts_to_host(
+                    swk, is_start, counts, spacked)
             wparts.append(wk)
             cparts.append(cnt)
             pparts.append(pk)
@@ -569,11 +577,10 @@ def dict_from_batch_chunked(batch: fastx.SeqBatch, k: int, rc: bool,
                 )
                 int(nu[0])
             with record_function("ska::to_host"):
-                kk, ss = P.unpack_host(K.to_numpy_keys(sp[0]),
-                                       union[0].cpu().numpy(),
-                                       is_end[0].cpu().numpy(), W)
+                kk, ss, nbytes = P.dict_to_host(sp[0], union[0], is_end[0])
             kparts.append(kk)
             sparts.append(ss)
+        chunk_copy_bytes += nbytes
     chunked_samples += 1
     chunks += len(wparts) + len(kparts)
     chunk_rows += sum(len(x) for x in wparts + kparts)

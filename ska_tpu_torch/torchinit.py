@@ -23,8 +23,10 @@ JAX package's jit dispatches (a torch op launches kernels of its own,
 which nothing here counts). ``kernel_builds`` is the compiler runs that
 ``kernels`` made in this process, nvcc and g++ together, the counterpart
 of its backend compiles. ``chunked`` is ``chunk_counts()`` at exit: the
-samples built in chunks, their chunks and the rows the chunks handed to
-the host merge (sample.py). ``save`` is ``save_counts()`` at exit: the
+samples built in chunks, their chunks, the rows the chunks handed to
+the host merge and the bytes those rows took from the device to the host
+(sample.py; a chunk is compacted on the device, so only its kept rows
+cross). ``save`` is ``save_counts()`` at exit: the
 `.skf` files written, their snappy framing chunks and the most threads
 one save used (io/skf.py). Every compute module imports this one, so the
 CLI, webapi and graft_entry all report it. The line has the form of the
@@ -65,11 +67,13 @@ def launch_counts() -> dict:
 
 def chunk_counts() -> dict:
     """The chunked build's counters since the last reset_launch_counts():
-    samples built in chunks, chunks, and rows handed to the host merge."""
+    samples built in chunks, chunks, rows handed to the host merge, and
+    the bytes those rows took from the device to the host."""
     from . import sample
 
     return {"chunked_samples": sample.chunked_samples,
-            "chunks": sample.chunks, "chunk_rows": sample.chunk_rows}
+            "chunks": sample.chunks, "chunk_rows": sample.chunk_rows,
+            "chunk_copy_bytes": sample.chunk_copy_bytes}
 
 
 def save_counts() -> dict:
@@ -90,6 +94,7 @@ def reset_launch_counts():
     sort.radix_launches = 0
     lookup.lower_bound_launches = 0
     sample.chunked_samples = sample.chunks = sample.chunk_rows = 0
+    sample.chunk_copy_bytes = 0
     skf.saved_files = skf.save_chunks = skf.save_threads = 0
 
 

@@ -235,26 +235,59 @@ def test_chunk_counters(tmp_path, monkeypatch, min_count):
     batch, is_reads = tsample.prepare_sample(files[0][1:])
     valid = tsample._masks(batch, qual, is_reads)
     n_chunks = len(list(tsample._chunk_views(batch, k, cap, valid)))
-    handed = []  # rows of each chunk's host compaction
+    handed = []  # rows of each chunk's device compaction
+    rows_to_host = TP.rows_to_host
 
-    def counted(unpack):
-        def run(*args):
-            out = unpack(*args)
-            handed.append(len(out[0]))
-            return out
-        return run
+    def counted(sel, *xs):
+        out = rows_to_host(sel, *xs)
+        handed.append(len(out[0][0]))
+        return out
 
-    for name in ("unpack_chunk_counts", "unpack_host"):
-        monkeypatch.setattr(TP, name, counted(getattr(TP, name)))
+    monkeypatch.setattr(TP, "rows_to_host", counted)
     monkeypatch.setenv("SKA_MAX_CHUNK_BASES", str(cap))
     torchinit.reset_launch_counts()
     tapi.build(files, k, True, qual, device="cpu")
     assert n_chunks >= 3 and len(handed) == n_chunks
+    # whole key, count (int32), packed split pair; or split pair, set
+    row_bytes = 16 + 4 if min_count > 1 else 8 + 1
     assert torchinit.chunk_counts() == {
-        "chunked_samples": 1, "chunks": n_chunks, "chunk_rows": sum(handed)}
+        "chunked_samples": 1, "chunks": n_chunks, "chunk_rows": sum(handed),
+        "chunk_copy_bytes": sum(handed) * row_bytes}
     torchinit.reset_launch_counts()
     assert torchinit.chunk_counts() == {
-        "chunked_samples": 0, "chunks": 0, "chunk_rows": 0}
+        "chunked_samples": 0, "chunks": 0, "chunk_rows": 0,
+        "chunk_copy_bytes": 0}
+
+
+@pytest.mark.parametrize("min_count", [5, 0])
+def test_chunk_copies_only_kept_rows(tmp_path, monkeypatch, min_count):
+    """A chunked build turns no padded chunk output into a host array:
+    every tensor that reaches numpy has fewer rows than a chunk's padded
+    length, and together they are the bytes chunk_copy_bytes counts."""
+    from ska_tpu_torch import torchinit
+
+    rng = np.random.default_rng(21)
+    fwd, rev = _read_pairs(rng, _genome(rng, 700), 80, 80)
+    files = [("big", _write_fastq(tmp_path / "big_1.fastq", fwd),
+              _write_fastq(tmp_path / "big_2.fastq", rev))]
+    qual = QualOpts(min_count=min_count, min_qual=20, qual_filter=2)
+    cap, k = 4096, 17
+    Lp = tsample._bucket(cap + k + 1)
+    sizes = []  # (rows, bytes) of every tensor turned into a numpy array
+    numpy = torch.Tensor.numpy
+
+    def recorded(t, *args, **kwargs):
+        sizes.append((len(t) if t.dim() else 1, t.numel() * t.element_size()))
+        return numpy(t, *args, **kwargs)
+
+    monkeypatch.setattr(torch.Tensor, "numpy", recorded)
+    monkeypatch.setenv("SKA_MAX_CHUNK_BASES", str(cap))
+    torchinit.reset_launch_counts()
+    tapi.build(files, k, True, qual, device="cpu")
+    got = torchinit.chunk_counts()
+    assert got["chunks"] >= 3 and got["chunk_rows"] > 0
+    assert max(rows for rows, _ in sizes) < Lp
+    assert sum(nbytes for _, nbytes in sizes) == got["chunk_copy_bytes"]
 
 
 def _planted_pair(tmp_path, rng):
@@ -439,6 +472,11 @@ def test_sample_pipeline_matches_jax(k, min_count, qual_filter):
                             got[2].numpy(), W)
     assert len(wk) > 0 and int(got[3]) == int(want[3]) == len(wk)
     assert np.array_equal(gk, wk) and np.array_equal(gs, ws)
+    # the chunked build's compaction on the device: the same rows
+    dk, ds, nbytes = TP.dict_to_host(*got[:3])
+    assert dk.dtype == np.uint64 and ds.dtype == np.uint8
+    assert np.array_equal(dk, wk) and np.array_equal(ds, ws)
+    assert nbytes == len(wk) * (8 * W + 1)
 
 
 @pytest.mark.parametrize("k,qual_filter", [(9, 2), (17, 1), (35, 0)])
@@ -453,12 +491,12 @@ def test_chunk_count_pipeline_matches_jax(k, qual_filter):
     got = TP.chunk_count_from_raw(torch.from_numpy(seq), torch.from_numpy(qb),
                                   torch.from_numpy(ends), *args)
     w = JP.unpack_chunk_counts(*want[:4], W)
-    g = TP.unpack_chunk_counts(TK.to_numpy_keys(got[0]), got[1].numpy(),
-                               got[2].numpy(), TK.to_numpy_keys(got[3]), W)
+    *g, nbytes = TP.chunk_counts_to_host(*got[:4])
     assert int(got[4]) == int(want[4]) == len(w[0]) > 0
     assert w[1].max() > 1  # some whole k-mers occur more than once
     for a, b in zip(g, w):
-        assert np.array_equal(a, b)
+        assert a.dtype == np.asarray(b).dtype and np.array_equal(a, b)
+    assert nbytes == len(w[0]) * (16 * W + 4)
 
 
 @pytest.mark.parametrize("S,k,min_count,qual_filter", [

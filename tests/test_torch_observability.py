@@ -203,7 +203,7 @@ def test_dispatch_stats_line(inputs, tmp_path, switch):
                           "chunked", "save"}
     assert stats["launches"] == {"radix_sort": 0, "lower_bound": 0}
     assert stats["chunked"] == {"chunked_samples": 0, "chunks": 0,
-                                "chunk_rows": 0}
+                                "chunk_rows": 0, "chunk_copy_bytes": 0}
     assert stats["save"]["files"] == 1
     assert stats["save"]["chunks"] >= stats["save"]["max_threads"] >= 1
     assert stats["kernel_launches"] == 0
@@ -213,7 +213,9 @@ def test_dispatch_stats_line(inputs, tmp_path, switch):
 def test_dispatch_stats_count_chunks(inputs, tmp_path, monkeypatch):
     """A reads build cut into chunks prints, under SKA_DISPATCH_STATS=1,
     the chunked counters that the same build counts in process: one
-    chunked sample, its chunks and the rows they handed to the merge."""
+    chunked sample, its chunks, the rows they handed to the merge and
+    the bytes of those rows alone (16W + 4 a row under the count
+    filter)."""
     from ska_tpu_torch import torchinit
 
     tsv = tmp_path / "reads.tsv"
@@ -230,6 +232,7 @@ def test_dispatch_stats_count_chunks(inputs, tmp_path, monkeypatch):
     cli.main(argv + ["--device", "cpu"])
     want = torchinit.chunk_counts()
     assert want["chunked_samples"] == 1 and want["chunks"] >= 3
+    assert want["chunk_copy_bytes"] == want["chunk_rows"] * (16 + 4) > 0
     assert stats["chunked"] == want
 
 
