@@ -75,7 +75,9 @@ struct Array {
     const uint64_t* counts;
 };
 
-static size_t piece_size(const Piece& p, const Array& a) {
+// bytes of a piece's encoding; *wide counts the keys of a KEYS128 piece
+// written as bignums
+static size_t piece_size(const Piece& p, const Array& a, size_t* wide) {
     size_t s = 0;
     switch (p.kind) {
     case LITERAL:
@@ -89,6 +91,7 @@ static size_t piece_size(const Piece& p, const Array& a) {
         for (size_t i = p.begin; i < p.end; i++) {
             uint64_t hi = a.keys[2 * i];
             s += hi == 0 ? head_len(a.keys[2 * i + 1]) : 2 + bignum_len(hi);
+            *wide += hi != 0;
         }
         return s;
     case CELLS:
@@ -176,7 +179,7 @@ static void add_blocks(std::vector<Piece>& pieces, Kind kind, size_t n,
 // ciborium bignums and the 64 KiB framing chunks all match —
 // tests/test_torch_host.py pins equality. 0 ok, nonzero = not written
 // (io/native.py raises). stats[0] gets the framing chunks, stats[1] the
-// threads used.
+// threads used, stats[2] the keys written as tag-2 bignums.
 static long long save_impl(
     const char* path, const uint64_t* keys, long long n, int W,
     const uint8_t* variants, long long S, const uint64_t* counts,
@@ -230,10 +233,15 @@ static long long save_impl(
     for (const Lit& l : lit) most += l.b.size();
     const size_t most_chunks = (most + CH - 1) / CH;
     const int TE = (int)(most_chunks < (size_t)T0 ? most_chunks : (size_t)T0);
-    std::vector<size_t> off(pieces.size() + 1, 0);
-    pool_for_each(pieces.size(), TE, [] { return 0; },
-                  [&](int&, size_t i) { off[i + 1] = piece_size(pieces[i], arr); });
-    for (size_t i = 0; i < pieces.size(); i++) off[i + 1] += off[i];
+    std::vector<size_t> off(pieces.size() + 1, 0), wide(pieces.size(), 0);
+    pool_for_each(pieces.size(), TE, [] { return 0; }, [&](int&, size_t i) {
+        off[i + 1] = piece_size(pieces[i], arr, &wide[i]);
+    });
+    size_t wide_keys = 0;
+    for (size_t i = 0; i < pieces.size(); i++) {
+        off[i + 1] += off[i];
+        wide_keys += wide[i];
+    }
     const size_t total = off.back();
     std::unique_ptr<uint8_t[]> buf(new uint8_t[total]);
     pool_for_each(pieces.size(), TE, [] { return 0; },
@@ -299,6 +307,7 @@ static long long save_impl(
     if (fclose(f) != 0 || !ok) return -1;
     stats[0] = (long long)chunks;
     stats[1] = T;
+    stats[2] = (long long)wide_keys;
     return 0;
 }
 

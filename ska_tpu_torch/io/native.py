@@ -214,7 +214,8 @@ def update_counts(variants, drop_ambig, is_ambig):
 def skf_save(path, keys, variants, counts, names, k, rc, ska_version):
     """The `.skf` writer (csrc/host/save.cpp ska_host_save): CBOR encode
     + snappy framing on SKA_THREADS threads. Returns (framing chunks,
-    threads used); raises when the writer declines."""
+    threads used, keys written as tag-2 bignums); raises when the writer
+    declines."""
     keys_np = np.ascontiguousarray(keys, dtype=np.uint64)
     if keys_np.ndim == 1:
         keys_np = keys_np[:, None]
@@ -228,7 +229,7 @@ def skf_save(path, keys, variants, counts, names, k, rc, ska_version):
             f"counts {counts_np.shape} do not form one array")
     blob = b"\x00".join(str(nm).encode("utf-8") for nm in names)
     ver = str(ska_version).encode("utf-8")
-    stats = np.zeros(2, dtype=np.int64)
+    stats = np.zeros(3, dtype=np.int64)
     rcv = _lib().ska_host_save(
         path.encode(), keys_np.ctypes.data_as(_u64p), n, int(W),
         var.ctypes.data_as(_u8p), var.shape[1],
@@ -236,7 +237,7 @@ def skf_save(path, keys, variants, counts, names, k, rc, ska_version):
         int(k), 1 if rc else 0, ver, len(ver), stats.ctypes.data_as(_i64p))
     if rcv != 0:
         raise OSError(f"skf save: could not write {path} (code {rcv})")
-    return int(stats[0]), int(stats[1])
+    return int(stats[0]), int(stats[1]), int(stats[2])
 
 
 def aln_write(ref_concat, chrom_len, m_chrom, m_pos, bases, half,

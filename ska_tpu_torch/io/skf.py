@@ -13,7 +13,8 @@ at any thread count.
 Counters of the writer (``torchinit.save_counts``, zeroed with the
 launch counters): ``saved_files``, the `.skf` files written;
 ``save_chunks``, their 64 KiB snappy framing chunks; ``save_threads``,
-the most threads one save used.
+the most threads one save used; ``save_wide_keys``, the keys written as
+tag-2 bignums (u128 keys whose high limb is not 0).
 """
 
 import threading
@@ -28,21 +29,23 @@ from . import cbor, native, snappy
 saved_files = 0
 save_chunks = 0
 save_threads = 0
+save_wide_keys = 0
 _counts_lock = threading.Lock()  # saves may run in threads at once
 
 
 def save(arr: SkaArray, path: str, add_suffix: bool = True):
     """add_suffix mirrors save_skf/delete (generic_modes.rs:270-283,200-204)."""
-    global saved_files, save_chunks, save_threads
+    global saved_files, save_chunks, save_threads, save_wide_keys
     if add_suffix and not path.endswith(".skf"):
         path = path + ".skf"
-    chunks, threads = native.skf_save(
+    chunks, threads, wide = native.skf_save(
         path, arr.keys, arr.variants, arr.counts, arr.names, arr.k, arr.rc,
         arr.ska_version)
     with _counts_lock:
         saved_files += 1
         save_chunks += chunks
         save_threads = max(save_threads, threads)
+        save_wide_keys += wide
     return path
 
 

@@ -34,6 +34,10 @@ from .keys import SIGN
 # pass together (10 for one (key, sample id) sort of the main path's rows
 # at W=1, 9 for one sort of 62-bit whole k-mers by the limbs alone)
 radix_launches = 0
+# rows handed to the radix kernels, by (W, num_keys): {(W, num_keys):
+# [sorts, rows]}; a (B, L) operand counts B sorts, a row of fewer than 2
+# elements none
+radix_sorts = {}
 
 RADIX_BITS = 8
 RADIX_THREADS = 256  # threads of a block (csrc kThreads), one per bin
@@ -166,6 +170,9 @@ def _radix_sort(ops, W: int, keyed: bool):
     n = ops[0].numel()
     if n < 2:
         return ops
+    tally = radix_sorts.setdefault((W, W + keyed), [0, 0])
+    tally[0] += 1
+    tally[1] += n
     lib = _lib()
     dev = ops[0].device
     D = 4 + 8 * W

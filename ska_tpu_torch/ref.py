@@ -14,7 +14,8 @@ Each step runs in a ``torch.profiler.record_function`` span, as the
 build's do: ``ska::parse``, ``ska::scan`` (the extraction dispatches),
 ``ska::lookup`` (the keys to the device, the lookup, the hits back),
 ``ska::gather`` (the hit rows of the variants matrix, on the host),
-``ska::pseudoalign`` and ``ska::vcf`` (the VCF's records).
+``ska::pseudoalign``, then ``ska::vcf`` (the VCF's records) or
+``ska::aln`` (the pseudoalignment's FASTA records).
 
 In a process group (parallel.use_distributed) the lookup is cut into
 key ranges over the ranks (parallel/postbuild.py::distributed_lookup).
@@ -292,8 +293,9 @@ class RefSka:
 
     def write_aln(self, fh):
         alns = self.pseudoalignment()
-        for name, seq in zip(self.mapped_names, alns):
-            fastx.write_fasta(name, bytes(seq), fh)
+        with record_function("ska::aln"):
+            for name, seq in zip(self.mapped_names, alns):
+                fastx.write_fasta(name, bytes(seq), fh)
 
     def write_vcf(self, fh):
         alns = self.pseudoalignment()

@@ -9,30 +9,33 @@ Tests pass ``cpu``.
 Each hand-written kernel's wrapper keeps a plain integer that it adds
 one to where it launches its kernel, and nowhere else;
 ``launch_counts`` reads them all and ``reset_launch_counts`` zeroes them,
-and the chunked build's counters (``chunk_counts``) and the `.skf`
-writer's (``save_counts``) with them.
+and the radix kernels' sorts and rows (``sort_counts``), the chunked
+build's counters (``chunk_counts``) and the `.skf` writer's
+(``save_counts``) with them.
 
 SKA_DISPATCH_STATS=1 (the counterpart of ska_tpu/jaxinit.py's switch)
 prints one stderr line when the process exits:
 
-    SKA_DISPATCH_STATS {"kernel_launches": N, "launches": {...}, "kernel_builds": B, "chunked": {...}, "save": {...}}
+    SKA_DISPATCH_STATS {"kernel_launches": N, "launches": {...}, "radix_sorts": {...}, "kernel_builds": B, "chunked": {...}, "save": {...}}
 
 ``launches`` is ``launch_counts()`` at exit and ``kernel_launches`` their
 sum: the hand-written kernels' launches, the port's counterpart of the
 JAX package's jit dispatches (a torch op launches kernels of its own,
-which nothing here counts). ``kernel_builds`` is the compiler runs that
-``kernels`` made in this process, nvcc and g++ together, the counterpart
-of its backend compiles. ``chunked`` is ``chunk_counts()`` at exit: the
-samples built in chunks, their chunks, the rows the chunks handed to
-the host merge and the bytes those rows took from the device to the host
-(sample.py; a chunk is compacted on the device, so only its kept rows
-cross). ``save`` is ``save_counts()`` at exit: the
-`.skf` files written, their snappy framing chunks and the most threads
-one save used (io/skf.py). Every compute module imports this one, so the
-CLI, webapi and graft_entry all report it. The line has the form of the
-JAX package's, which scripts/bench_cmds.py's ``_STATS_RE`` matches, but
-that script runs the JAX CLI: the port's line is for whoever runs a
-command of the port.
+which nothing here counts). ``radix_sorts`` is ``sort_counts()`` at
+exit: the sorts the radix kernels ran and the rows they sorted, by key
+layout. ``kernel_builds`` is the compiler runs that ``kernels`` made in
+this process, nvcc and g++ together, the counterpart of its backend
+compiles. ``chunked`` is ``chunk_counts()`` at exit: the samples built
+in chunks, their chunks, the rows the chunks handed to the host merge
+and the bytes those rows took from the device to the host (sample.py; a
+chunk is compacted on the device, so only its kept rows cross).
+``save`` is ``save_counts()`` at exit: the `.skf` files written, their
+snappy framing chunks, the most threads one save used and the keys
+written as tag-2 bignums (io/skf.py). Every compute module imports this
+one, so the CLI, webapi and graft_entry all report it. The line has the
+form of the JAX package's, which scripts/bench_cmds.py's ``_STATS_RE``
+matches, but that script runs the JAX CLI: the port's line is for
+whoever runs a command of the port.
 """
 
 import atexit
@@ -65,6 +68,17 @@ def launch_counts() -> dict:
             "lower_bound": lookup.lower_bound_launches}
 
 
+def sort_counts() -> dict:
+    """The radix kernels' sorts and the rows they sorted since the last
+    reset_launch_counts(), by key layout: {"W=<limbs>,num_keys=<n>":
+    {"sorts": .., "rows": ..}}. num_keys W + 1 is the (key, sample id)
+    sort, W the limbs alone."""
+    from .ops import sort
+
+    return {f"W={w},num_keys={nk}": {"sorts": s, "rows": r}
+            for (w, nk), (s, r) in sorted(sort.radix_sorts.items())}
+
+
 def chunk_counts() -> dict:
     """The chunked build's counters since the last reset_launch_counts():
     samples built in chunks, chunks, rows handed to the host merge, and
@@ -78,12 +92,12 @@ def chunk_counts() -> dict:
 
 def save_counts() -> dict:
     """The `.skf` writer's counters since the last reset_launch_counts():
-    files written, their framing chunks, and the most threads one save
-    used."""
+    files written, their framing chunks, the most threads one save used,
+    and the keys written as tag-2 bignums."""
     from .io import skf
 
     return {"files": skf.saved_files, "chunks": skf.save_chunks,
-            "max_threads": skf.save_threads}
+            "max_threads": skf.save_threads, "wide_keys": skf.save_wide_keys}
 
 
 def reset_launch_counts():
@@ -92,10 +106,12 @@ def reset_launch_counts():
     from .ops import lookup, sort
 
     sort.radix_launches = 0
+    sort.radix_sorts.clear()
     lookup.lower_bound_launches = 0
     sample.chunked_samples = sample.chunks = sample.chunk_rows = 0
     sample.chunk_copy_bytes = 0
     skf.saved_files = skf.save_chunks = skf.save_threads = 0
+    skf.save_wide_keys = 0
 
 
 def _print_dispatch_stats():
@@ -104,8 +120,8 @@ def _print_dispatch_stats():
 
     launches = launch_counts()
     stats = {"kernel_launches": sum(launches.values()), "launches": launches,
-             "kernel_builds": kernels.builds, "chunked": chunk_counts(),
-             "save": save_counts()}
+             "radix_sorts": sort_counts(), "kernel_builds": kernels.builds,
+             "chunked": chunk_counts(), "save": save_counts()}
     print("SKA_DISPATCH_STATS " + json.dumps(stats), file=sys.stderr)
 
 

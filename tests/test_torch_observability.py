@@ -10,8 +10,9 @@ SKA_DISPATCH_STATS):
   rank writes its own, a rank with nothing to do too.
 - SKA_DISPATCH_STATS=1: one stderr line at exit that
   scripts/bench_cmds.py's _STATS_RE reads, with the hand-written
-  kernels' launches (0 on the CPU), the compiler runs of the process
-  and the .skf writer's files, chunks and threads; none and no exit
+  kernels' launches and sorts (none on the CPU), the compiler runs of
+  the process and the .skf writer's files, chunks, threads and bignum
+  keys; none and no exit
   hook without it. `kernels.builds` counts a compiler
   run and no up-to-date library.
 """
@@ -85,6 +86,8 @@ def _argv(cmd, inp, out):
         "align": ["align", *inp["samples"], "-o", o],
         "align_skf": ["align", inp["skf"], "-o", o],
         "map": ["map", inp["ref"], inp["skf"], "-f", "vcf", "-o", o],
+        # the default format, aln
+        "map_aln": ["map", inp["ref"], inp["skf"], "-o", o],
         "distance": ["distance", inp["skf"], "-o", o],
         "cov": ["cov", *inp["fastq"], "-k", "17"],
         "weed": ["weed", inp["skf"], inp["ref"], "-o", o + ".skf"],
@@ -99,6 +102,8 @@ SPANS = {
               "ska::command"},
     "map": {"ska::scan", "ska::lookup", "ska::vcf", "ska::command",
             "ska::load", "ska::read", "ska::decompress", "ska::decode"},
+    "map_aln": {"ska::scan", "ska::lookup", "ska::pseudoalign", "ska::aln",
+                "ska::command", "ska::load"},
     "weed": {"ska::scan"},
 }
 
@@ -127,7 +132,7 @@ NO_TORCH_OP = ("align_skf", "nk")
 
 
 @pytest.mark.parametrize("cmd", ["build", "align", "align_skf", "map",
-                                 "distance", "cov", "weed", "nk"])
+                                 "map_aln", "distance", "cov", "weed", "nk"])
 def test_profile_writes_one_trace(inputs, tmp_path, monkeypatch, capsys,
                                   caplog, cmd):
     """One parseable Chrome trace with the command's spans (its aten::
@@ -199,12 +204,13 @@ def test_dispatch_stats_line(inputs, tmp_path, switch):
         return
     assert len(lines) == 1
     stats = json.loads(stats_re.search(lines[0]).group(1))
-    assert set(stats) == {"kernel_launches", "launches", "kernel_builds",
-                          "chunked", "save"}
+    assert set(stats) == {"kernel_launches", "launches", "radix_sorts",
+                          "kernel_builds", "chunked", "save"}
     assert stats["launches"] == {"radix_sort": 0, "lower_bound": 0}
+    assert stats["radix_sorts"] == {}
     assert stats["chunked"] == {"chunked_samples": 0, "chunks": 0,
                                 "chunk_rows": 0, "chunk_copy_bytes": 0}
-    assert stats["save"]["files"] == 1
+    assert stats["save"]["files"] == 1 and stats["save"]["wide_keys"] == 0
     assert stats["save"]["chunks"] >= stats["save"]["max_threads"] >= 1
     assert stats["kernel_launches"] == 0
     assert isinstance(stats["kernel_builds"], int) and stats["kernel_builds"] >= 0
@@ -258,7 +264,8 @@ def test_dispatch_stats_count_the_save(tmp_path):
         cbor_len = len(snappy.frame_decompress(f.read()))
     chunks = -(-cbor_len // 65536)
     assert chunks > 4
-    assert stats["save"] == {"files": 1, "chunks": chunks, "max_threads": 4}
+    assert stats["save"] == {"files": 1, "chunks": chunks, "max_threads": 4,
+                             "wide_keys": 0}
 
 
 @pytest.mark.parametrize("switch", ["1", None])
@@ -396,14 +403,14 @@ def test_webapi_call_encloses_its_steps(inputs, tmp_path, query):
 # the spans whose self times the benchmark reads: nothing may nest in
 # them, or their metrics would shrink
 SELF_TIMED = ("ska::parse", "ska::stage", "ska::to_device", "ska::device_pass",
-              "ska::to_host", "ska::union", "ska::save", "ska::vcf")
+              "ska::to_host", "ska::union", "ska::save", "ska::vcf", "ska::aln")
 
 
 @pytest.mark.parametrize("path", ["build_fasta", "build_fastq", "map_vcf",
-                                  "webapi_map", "build_fastq_chunked"])
+                                  "map_aln", "webapi_map", "build_fastq_chunked"])
 def test_no_span_nests_in_a_self_timed_span(inputs, tmp_path, monkeypatch,
                                             capsys, path):
-    """On the benchmark's five paths, no span but ska::compile opens
+    """On the benchmark's six paths, no span but ska::compile opens
     inside a span whose self time a metric reads, on the same thread.
     The chunked reads build (the read pair cut into chunks) merges its
     chunks in one ska::chunk_merge inside ska::command."""
@@ -424,8 +431,8 @@ def test_no_span_nests_in_a_self_timed_span(inputs, tmp_path, monkeypatch,
             argv = ["build", "-f", str(files), "-k", "17", "--min-count", "5",
                     "--min-qual", "20", "-o", str(out / "out")]
         else:
-            argv = _argv({"build_fasta": "build", "map_vcf": "map"}[path],
-                         inputs, str(out))
+            argv = _argv({"build_fasta": "build", "map_vcf": "map",
+                          "map_aln": "map_aln"}[path], inputs, str(out))
         monkeypatch.setenv("SKA_PROFILE", str(tmp_path / "trace"))
         cli.main(argv + ["--device", "cpu"])
         (trace,) = os.listdir(tmp_path / "trace")
