@@ -15,7 +15,9 @@
   filter (sample.py's chunked build); ``chunk_key_counts(_from_raw)``:
   one chunk of chunked ``ska cov``. ``rows_to_host`` compacts a chunk's
   outputs on the device and copies only the kept rows to the host
-  (``chunk_counts_to_host``, ``dict_to_host``).
+  (``chunk_counts_to_host``, ``dict_to_host``); ``merged_to_host`` turns
+  a merged batch's outputs into finished rows (ASCII variants, int64
+  counts, per-sample presence) on the device and copies only those.
 
 Every pass is fed the raw bytes of sample._stage_raw and derives its
 masks here (``device_masks``). The JAX package's merged build takes
@@ -231,14 +233,25 @@ def merged_build_pipeline(seqs, valid, qual_ok, rec_last, k: int, rc: bool,
     JAX package's merged_build_pipeline outputs: (ukeys (S*L, W) int64,
     variants (S*L, S) uint8 ASCII with '-' for a gap, counts (S*L,)
     int32, n_rows); rows from n_rows on are zero keys and all gaps."""
-    S = seqs.shape[0]
     ukeys, variants4, counts, n_rows = _merged_impl(
         seqs, valid, qual_ok, rec_last, k, rc, W, is_reads, use_mid_qual,
         min_count)
-    sets = torch.stack((variants4 >> 4, variants4 & 15), dim=-1)
-    ascii_of = torch.as_tensor(SET_TO_ASCII, device=seqs.device)
-    variants = ascii_of[sets.reshape(sets.shape[0], -1)[:, :S].long()]
-    return ukeys, variants, counts, n_rows
+    return ukeys, _variants_ascii(variants4, seqs.shape[0]), counts, n_rows
+
+
+# the two ASCII letters of each packed variants byte, high nibble first
+_PAIR_ASCII = np.stack([SET_TO_ASCII[np.arange(256) >> 4],
+                        SET_TO_ASCII[np.arange(256) & 15]], axis=-1)
+
+
+def _variants_ascii(variants4, S: int):
+    """(n, ceil(S/2)) two 4-bit set codes a byte -> (n, S) ASCII on their
+    device, '-' for a gap: one lookup of each byte's two letters, indexed
+    by int32 (an int64 index of every cell would be 8 bytes a cell)."""
+    pair = torch.as_tensor(_PAIR_ASCII, device=variants4.device)
+    var = pair.index_select(0, variants4.reshape(-1).int())
+    n, half = variants4.shape
+    return var.reshape(n, 2 * half)[:, :S].contiguous()
 
 
 def device_masks(seqs, qual_bits, rec_ends, strict_valid: bool,
@@ -410,25 +423,50 @@ def chunk_count_from_raw(
     return tuple(x[0] for x in out)
 
 
+def _to_host(xs):
+    """The tensors xs, all on one device, as numpy arrays, and the bytes
+    that crossed to the host: from a card into page-locked memory
+    (torch's caching host allocator), every copy queued before one wait;
+    on the CPU the tensors themselves."""
+    if xs[0].is_cuda:
+        host = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                for x in xs]
+        for h, x in zip(host, xs):
+            h.copy_(x, non_blocking=True)
+        torch.cuda.current_stream(xs[0].device).synchronize()
+        xs = host
+    return ([x.numpy() for x in xs],
+            sum(x.numel() * x.element_size() for x in xs))
+
+
 def rows_to_host(sel, *xs):
     """The rows of each of xs (L, ...) where the (L,) bool sel is True, in
     order, as numpy arrays, and the bytes that crossed to the host.
 
-    The rows are gathered on xs' device, so only the kept rows cross: from
-    a card into page-locked memory (torch's caching host allocator), every
-    copy queued before one wait; on the CPU the gathered rows are the
-    result. The pipelines' padded outputs never leave the device."""
+    The rows are gathered on xs' device, so only the kept rows cross
+    (``_to_host``). The pipelines' padded outputs never leave the
+    device."""
     idx = torch.nonzero(sel).squeeze(1)
-    rows = [x.index_select(0, idx) for x in xs]
-    if sel.is_cuda:
-        host = [torch.empty(r.shape, dtype=r.dtype, pin_memory=True)
-                for r in rows]
-        for h, r in zip(host, rows):
-            h.copy_(r, non_blocking=True)
-        torch.cuda.current_stream(sel.device).synchronize()
-        rows = host
-    return ([r.numpy() for r in rows],
-            sum(r.numel() * r.element_size() for r in rows))
+    return _to_host([x.index_select(0, idx) for x in xs])
+
+
+def merged_to_host(ukeys, variants4, counts, n: int, S: int):
+    """merged_build_from_raw's outputs of a batch of S samples with n rows
+    as finished host arrays: (keys (n, W) uint64, variants (n, S) uint8
+    ASCII with '-' for a gap, counts (n,) int64, present (S,) bool,
+    whether each sample's column holds a non-gap base), and the bytes
+    that crossed to the host, n * (8W + S + 8) + S.
+
+    The ASCII and the presence are made on the outputs' device and the
+    counts are _merged_impl's own (one selected pair a (key, sample), and
+    a union set is never 0, so they equal the row's non-gaps); only these
+    rows cross (``_to_host``), and the host makes no pass over the
+    variants matrix."""
+    var = _variants_ascii(variants4[:n], S)
+    present = (var != ord("-")).any(dim=0)
+    (keys, var, cnt, present), nbytes = _to_host(
+        [ukeys[:n], var, counts[:n].long(), present])
+    return keys.view(np.uint64), var, cnt, present, nbytes
 
 
 def chunk_counts_to_host(swk, is_start, counts, spacked):

@@ -45,6 +45,15 @@ the live segment starts (or dictionary rows) are gathered there, and
 only those rows cross, into page-locked host memory
 (``ops.pipeline.rows_to_host``): ``chunk_rows`` x (16W + 4) bytes under
 a count filter, x (8W + 1) without one.
+
+The merged build finishes each batch on the card in the same way: the
+ASCII variants matrix, the per-row sample counts and each sample's
+presence are made there, and only those rows cross, pinned
+(``ops.pipeline.merged_to_host``); the host makes no pass over the
+matrix. Its counters (``torchinit.merged_counts``, zeroed with the
+others): ``merged_batches``, the batches copied out; ``merged_rows``,
+their rows; ``merged_copy_bytes``, the bytes those rows took,
+``merged_rows`` x (8W + S + 8) + S for a batch of S samples.
 """
 
 import concurrent.futures as cf
@@ -69,6 +78,9 @@ chunked_samples = 0
 chunks = 0
 chunk_rows = 0
 chunk_copy_bytes = 0
+merged_batches = 0
+merged_rows = 0
+merged_copy_bytes = 0
 
 
 def _bucket(n: int) -> int:
@@ -271,15 +283,16 @@ def _auto_max_batch(Lp: int) -> int:
     return eff
 
 
-def _check_all_present(var_np, n_rows, paths):
+def _present_columns(var_np):
+    """Whether each column of a host variants matrix holds a non-gap base."""
+    return (var_np != ord("-")).any(axis=0)
+
+
+def _check_all_present(present, paths):
     """A sample with zero k-mers panics in the reference
     (ska_dict.rs:374-376): column col of the variants matrix must carry
-    at least one non-gap base; paths[col] names the offending input."""
-    present = (
-        (var_np != ord("-")).any(axis=0)
-        if n_rows
-        else np.zeros(len(paths), bool)
-    )
+    at least one non-gap base (present[col]); paths[col] names the
+    offending input."""
     for col, path in enumerate(paths):
         if not present[col]:
             raise ValueError(f"{path} has no valid sequence")
@@ -363,6 +376,7 @@ def build_samples_merged(input_files, k: int, rc: bool, qual,
     ska_tpu.sample.build_samples_merged returns; api.build unions them
     and restores the input column order.
     """
+    global merged_batches, merged_rows, merged_copy_bytes
     check_k(k)
     dev = get_device(device)
     prepared, groups, big, cap = _parse_and_group(input_files, k, qual,
@@ -387,19 +401,18 @@ def build_samples_merged(input_files, k: int, rc: bool, qual,
                 seqs, qual_bits, rec_ends = (torch.from_numpy(x).to(dev)
                                              for x in staged[:3])
             with record_function("ska::device_pass"):
-                ukeys, variants4, _counts, n_rows = P.merged_build_from_raw(
+                ukeys, variants4, counts, n_rows = P.merged_build_from_raw(
                     seqs, qual_bits, rec_ends, k, rc, W, is_reads, use_mq,
                     int(qual.min_count), strict_valid, has_qual,
                 )
                 n = int(n_rows)
             with record_function("ska::to_host"):
-                keys_np = K.to_numpy_keys(ukeys[:n])
-                # 4-bit packed codes -> ASCII
-                var_np = P.unpack_variants4(variants4[:n].cpu().numpy(),
-                                            len(chunk))
-                # counted on the host from the matrix, as the JAX package does
-                counts_np = (var_np != ord("-")).sum(axis=1).astype(np.int64)
-            _check_all_present(var_np, n, [input_files[i][1] for i in chunk])
+                keys_np, var_np, counts_np, present, nbytes = P.merged_to_host(
+                    ukeys, variants4, counts, n, len(chunk))
+            merged_batches += 1
+            merged_rows += n
+            merged_copy_bytes += nbytes
+            _check_all_present(present, [input_files[i][1] for i in chunk])
             names = [input_files[i][0] for i in chunk]
             out.append((chunk, names, keys_np, var_np, counts_np))
             bar.update(len(chunk))
@@ -468,9 +481,9 @@ def build_samples_distributed(input_files, k: int, rc: bool, qual,
             ))
             call_idxs.extend(idxs)
     if calls:
-        keys_np, var_np, counts_np, n_rows = distributed_build_multi(
+        keys_np, var_np, counts_np, _ = distributed_build_multi(
             calls, k, rc, min_count=int(qual.min_count), device=dev)
-        _check_all_present(var_np, n_rows,
+        _check_all_present(_present_columns(var_np),
                            [input_files[i][1] for i in call_idxs])
         out.append((call_idxs, [input_files[i][0] for i in call_idxs],
                     keys_np, var_np, counts_np))

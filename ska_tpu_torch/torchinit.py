@@ -10,13 +10,14 @@ Each hand-written kernel's wrapper keeps a plain integer that it adds
 one to where it launches its kernel, and nowhere else;
 ``launch_counts`` reads them all and ``reset_launch_counts`` zeroes them,
 and the radix kernels' sorts and rows (``sort_counts``), the chunked
-build's counters (``chunk_counts``) and the `.skf` writer's
-(``save_counts``) with them.
+build's counters (``chunk_counts``), the merged build's
+(``merged_counts``) and the `.skf` writer's (``save_counts``) with
+them.
 
 SKA_DISPATCH_STATS=1 (the counterpart of ska_tpu/jaxinit.py's switch)
 prints one stderr line when the process exits:
 
-    SKA_DISPATCH_STATS {"kernel_launches": N, "launches": {...}, "radix_sorts": {...}, "kernel_builds": B, "chunked": {...}, "save": {...}}
+    SKA_DISPATCH_STATS {"kernel_launches": N, "launches": {...}, "radix_sorts": {...}, "kernel_builds": B, "chunked": {...}, "merged": {...}, "save": {...}}
 
 ``launches`` is ``launch_counts()`` at exit and ``kernel_launches`` their
 sum: the hand-written kernels' launches, the port's counterpart of the
@@ -29,10 +30,13 @@ compiles. ``chunked`` is ``chunk_counts()`` at exit: the samples built
 in chunks, their chunks, the rows the chunks handed to the host merge
 and the bytes those rows took from the device to the host (sample.py; a
 chunk is compacted on the device, so only its kept rows cross).
-``save`` is ``save_counts()`` at exit: the `.skf` files written, their
-snappy framing chunks, the most threads one save used and the keys
-written as tag-2 bignums (io/skf.py). Every compute module imports this
-one, so the CLI, webapi and graft_entry all report it. The line has the
+``merged`` is ``merged_counts()`` at exit: the merged build's batches
+copied out, their rows and the bytes those rows took from the device to
+the host (sample.py; a batch's ASCII, counts and presence are made on
+the device). ``save`` is ``save_counts()`` at exit: the `.skf` files
+written, their snappy framing chunks, the most threads one save used
+and the keys written as tag-2 bignums (io/skf.py). Every compute module
+imports this one, so the CLI, webapi and graft_entry all report it. The line has the
 form of the JAX package's, which scripts/bench_cmds.py's ``_STATS_RE``
 matches, but that script runs the JAX CLI: the port's line is for
 whoever runs a command of the port.
@@ -90,6 +94,17 @@ def chunk_counts() -> dict:
             "chunk_copy_bytes": sample.chunk_copy_bytes}
 
 
+def merged_counts() -> dict:
+    """The merged build's counters since the last reset_launch_counts():
+    batches copied out, their rows, and the bytes those rows took from
+    the device to the host."""
+    from . import sample
+
+    return {"merged_batches": sample.merged_batches,
+            "merged_rows": sample.merged_rows,
+            "merged_copy_bytes": sample.merged_copy_bytes}
+
+
 def save_counts() -> dict:
     """The `.skf` writer's counters since the last reset_launch_counts():
     files written, their framing chunks, the most threads one save used,
@@ -110,6 +125,7 @@ def reset_launch_counts():
     lookup.lower_bound_launches = 0
     sample.chunked_samples = sample.chunks = sample.chunk_rows = 0
     sample.chunk_copy_bytes = 0
+    sample.merged_batches = sample.merged_rows = sample.merged_copy_bytes = 0
     skf.saved_files = skf.save_chunks = skf.save_threads = 0
     skf.save_wide_keys = 0
 
@@ -121,7 +137,8 @@ def _print_dispatch_stats():
     launches = launch_counts()
     stats = {"kernel_launches": sum(launches.values()), "launches": launches,
              "radix_sorts": sort_counts(), "kernel_builds": kernels.builds,
-             "chunked": chunk_counts(), "save": save_counts()}
+             "chunked": chunk_counts(), "merged": merged_counts(),
+             "save": save_counts()}
     print("SKA_DISPATCH_STATS " + json.dumps(stats), file=sys.stderr)
 
 

@@ -3,6 +3,9 @@
 - ska_tpu_torch.api.build writes the same .skf bytes as ska_tpu.api.build
   (the JAX pipeline) on a random cohort and on tests/data/bubble_*.fa,
   and in merged batches of 3 and 2 rows under SKA_MAX_BATCH=3;
+- an all-N sample in a merged batch raises the JAX package's "has no
+  valid sequence" error; the merged build's counters count the batches
+  copied out, their rows and the only bytes turned into host arrays;
 - `python -m ska_tpu_torch build` then `align --device cpu` in a
   subprocess give the bytes of `./ska.py build` / `align`, and import
   neither jax nor ska_tpu.
@@ -105,6 +108,70 @@ def test_api_build_unpadded_batches_match_jax(tmp_path, monkeypatch):
     out_r = skf.save(ref, str(tmp_path / "ref"))
     with open(out_p, "rb") as a, open(out_r, "rb") as b:
         assert a.read() == b.read()
+
+
+@pytest.mark.parametrize("where,k", [(0, 31), (2, 63), ("alone", 31)])
+def test_all_n_sample_in_merged_batch_raises(tmp_path, where, k):
+    """A merged batch holding an all-N FASTA raises "<path> has no valid
+    sequence" naming that input, from the batch's presence vector, with
+    the JAX package's message; also where the all-N sample is alone in
+    its batch, which then has no rows."""
+    paths = _random_cohort(tmp_path, seed=5, short=3000)[:3]
+    bad = tmp_path / "alln.fa"
+    bad.write_bytes(b">n\n" + b"N" * (200 if where == "alone" else 3000)
+                    + b"\n")
+    paths.insert(len(paths) if where == "alone" else where, str(bad))
+    files = _input_files(paths)
+    with pytest.raises(ValueError) as got:
+        tapi.build(files, k, True, QUAL, device="cpu")
+    with pytest.raises(ValueError) as want:
+        japi.build(files, k, True, QUAL)
+    assert str(got.value) == str(want.value) == f"{bad} has no valid sequence"
+
+
+@pytest.mark.parametrize("k,max_batch", [(31, None), (63, "2")])
+def test_merged_counters(tmp_path, monkeypatch, k, max_batch):
+    """merged_counts() holds the merged batches copied out, their rows
+    and the bytes those rows took, n * (8W + S + 8) + S a batch of S
+    samples: the bytes of every tensor the build turns into a numpy
+    array, so no padded output reaches the host and the host unpacks no
+    variants; reset_launch_counts zeroes them."""
+    from ska_tpu_torch import sample as tsample
+    from ska_tpu_torch import torchinit
+    from ska_tpu_torch.ops import pipeline as TP
+
+    sizes = []  # bytes of every tensor turned into a numpy array
+    numpy = torch.Tensor.numpy
+
+    def recorded(t, *args, **kwargs):
+        sizes.append(t.numel() * t.element_size())
+        return numpy(t, *args, **kwargs)
+
+    def unpacked(*args):
+        raise AssertionError("the variants were unpacked on the host")
+
+    monkeypatch.setattr(torch.Tensor, "numpy", recorded)
+    monkeypatch.setattr(TP, "unpack_variants4", unpacked)
+    if max_batch:
+        monkeypatch.setenv("SKA_MAX_BATCH", max_batch)
+    files = _input_files(_random_cohort(tmp_path, seed=4))
+    torchinit.reset_launch_counts()
+    batches = tsample.build_samples_merged(files, k, True, QUAL, device="cpu")
+    W = 1 if k <= 31 else 2
+    # two length groups of 3 and 2 samples; batches of at most 2 split
+    # the first
+    assert [len(b[0]) for b in batches] == ([3, 2] if max_batch is None
+                                           else [2, 1, 2])
+    want_bytes = sum(len(b[2]) * (8 * W + len(b[0]) + 8) + len(b[0])
+                     for b in batches)
+    assert torchinit.merged_counts() == {
+        "merged_batches": len(batches),
+        "merged_rows": sum(len(b[2]) for b in batches),
+        "merged_copy_bytes": want_bytes}
+    assert sum(sizes) == want_bytes
+    torchinit.reset_launch_counts()
+    assert torchinit.merged_counts() == {
+        "merged_batches": 0, "merged_rows": 0, "merged_copy_bytes": 0}
 
 
 def test_load_array_builds_fasta_inputs(tmp_path):

@@ -205,11 +205,16 @@ def test_dispatch_stats_line(inputs, tmp_path, switch):
     assert len(lines) == 1
     stats = json.loads(stats_re.search(lines[0]).group(1))
     assert set(stats) == {"kernel_launches", "launches", "radix_sorts",
-                          "kernel_builds", "chunked", "save"}
+                          "kernel_builds", "chunked", "merged", "save"}
     assert stats["launches"] == {"radix_sort": 0, "lower_bound": 0}
     assert stats["radix_sorts"] == {}
     assert stats["chunked"] == {"chunked_samples": 0, "chunks": 0,
                                 "chunk_rows": 0, "chunk_copy_bytes": 0}
+    # the three samples are one batch: a W=1 key, 3 ASCII bytes and an
+    # int64 count a row, and the 3 presence flags
+    merged = stats["merged"]
+    assert merged["merged_batches"] == 1 and merged["merged_rows"] > 0
+    assert merged["merged_copy_bytes"] == merged["merged_rows"] * 19 + 3
     assert stats["save"]["files"] == 1 and stats["save"]["wide_keys"] == 0
     assert stats["save"]["chunks"] >= stats["save"]["max_threads"] >= 1
     assert stats["kernel_launches"] == 0

@@ -3,7 +3,8 @@ package's raw staging (ska_tpu.sample._stage_raw) of a batch, against
 the JAX merged_build_from_packed on its packed staging
 (ska_tpu.sample._stage_packed) of the same batch: ukeys[:n],
 variants4[:n], counts[:n] and n_rows exactly, for S in {1, 2, 5}, k in
-{9, 31, 33, 63}, rc on and off."""
+{9, 31, 33, 63}, rc on and off; and merged_to_host, the batch's copy-out,
+against the host unpack, count and presence scan of the same outputs."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -98,3 +99,41 @@ def test_unpack_variants4_matches_jax():
         assert np.array_equal(
             TP.unpack_variants4(vp, n_cols), JP.unpack_variants4(vp, n_cols)
         )
+
+
+@pytest.mark.parametrize(
+    "S,k,empty",
+    [(S, k, False) for S in (1, 2, 5, 16, 21) for k in (31, 63)]
+    + [(3, 31, True)],
+)
+def test_merged_to_host_matches_host_unpack(S, k, empty):
+    """merged_to_host's keys, ASCII matrix, int64 counts and presence
+    equal to_numpy_keys + unpack_variants4 + the count and the presence
+    scan of that matrix on the host, on the same merged_build_from_raw
+    outputs; a batch of all-N samples has no rows and no sample
+    present."""
+    W = width_for_k(k)
+    batches = _cohort(S, k, seed=S * 1000 + k)
+    if empty:
+        batches = [fastx.build_batch([b"N" * 300], [None]) for _ in range(S)]
+    Lp = _bucket(max(len(b.seq) for b in batches) + k + 1)
+    seqs, qb, re_, has_qual = _stage_raw(batches, Lp, 0)
+    ukeys, v4, counts, n_rows = TP.merged_build_from_raw(
+        torch.from_numpy(seqs), torch.from_numpy(qb), torch.from_numpy(re_),
+        k, True, W, False, False, 1, False, has_qual,
+    )
+    n = int(n_rows)
+    assert (n == 0) == empty
+    keys, var, cnt, present, nbytes = TP.merged_to_host(ukeys, v4, counts, n,
+                                                        S)
+    want_var = TP.unpack_variants4(v4[:n].numpy(), S)
+    assert np.array_equal(keys, to_numpy_keys(ukeys[:n]))
+    assert keys.dtype == np.uint64 and keys.shape == (n, W)
+    assert var.dtype == np.uint8 and var.flags["C_CONTIGUOUS"]
+    assert np.array_equal(var, want_var)
+    assert cnt.dtype == np.int64
+    assert np.array_equal(cnt, (want_var != ord("-")).sum(axis=1))
+    assert present.dtype == bool
+    assert np.array_equal(present, (want_var != ord("-")).any(axis=0))
+    assert present.all() != empty
+    assert nbytes == n * (8 * W + S + 8) + S
