@@ -57,7 +57,9 @@ def build(
 
 def assemble(batches, k: int, rc: bool) -> SkaArray:
     """The SkaArray of build_samples_merged's (or _distributed's) batch
-    results: their host union, in the input column order."""
+    results: their host union, in the input column order. `build` and
+    the browser aligner (webapi.py AlignData, whose batches of several
+    calls carry indices counted over the session) call it."""
     arrays = [
         SkaArray(k=k, rc=rc, names=names, keys=keys, variants=var, counts=counts)
         for (_, names, keys, var, counts) in batches

@@ -14,12 +14,23 @@ of the int8 one-hot (int32 sums, exact at any scale). ``class_gram`` is
 the JAX package's accelerator branch on an explicit device without its
 row dedupe (see class_gram); its CPU route is the same torch functions
 on CPU tensors.
+
+``class_gram`` runs in the span ``ska::gram`` (the class compaction,
+the chunk copies, the int8 products and the copy back), in ``ska
+distance`` and in the browser aligner (webapi.py AlignData) alike. Its
+counters (``torchinit.gram_counts``, zeroed with the launch counters):
+``gram_calls``, the calls; ``gram_chunks``, the int8 products;
+``gram_row_count``, the site rows they took, tail padding included;
+``gram_onehot_width``, the widest one-hot's columns; and
+``gram_onehot_bytes``, the one-hot bytes made, chunk rows x columns
+summed over the chunks.
 """
 
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .encoding import ASCII_TO_SET, BASE_PROB, SET_TO_ASCII
 from .torchinit import get_device
@@ -27,6 +38,19 @@ from .torchinit import get_device
 # One-hot scratch budget per Gram chunk (bytes); module-level so tests
 # can shrink it to drive several chunks with small data.
 GRAM_SCRATCH_BYTES = 1 << 28
+
+gram_calls = 0
+gram_chunks = 0
+gram_row_count = 0
+gram_onehot_width = 0
+gram_onehot_bytes = 0
+
+
+def _onehot_cols(n: int, width: int) -> int:
+    """The one-hot's columns: n * width rounded up to a multiple of 8 and
+    at least 24 (torch._int_mm on CUDA takes more than 16 rows and sizes
+    that are multiples of 8)."""
+    return max(24, -(-(n * width) // 8) * 8)
 
 
 @dataclass
@@ -72,7 +96,7 @@ def gram_chunk(classes_chunk, n: int, width: int = 16):
     on CUDA takes more than 16 rows and sizes that are multiples of 8);
     the extra columns are zero and sliced off."""
     C = classes_chunk.shape[0]
-    P = max(24, -(-(n * width) // 8) * 8)
+    P = _onehot_cols(n, width)
     X = torch.zeros((C, P), dtype=torch.int8, device=classes_chunk.device)
     cols = (torch.arange(n, device=classes_chunk.device) * width
             + classes_chunk.to(torch.int64))
@@ -127,19 +151,23 @@ def class_gram(variants: np.ndarray, device=None) -> np.ndarray:
     the TPU; on the card that host dedupe costs more than the whole int8
     Gram (chip_smoke.py phase 8 times both), so every size takes this
     route. In a process group (parallel.use_distributed) the sites are
-    cut over the ranks (parallel/postbuild.py).
+    cut over the ranks (parallel/postbuild.py). All of it runs in the
+    span ``ska::gram``.
     """
+    global gram_calls
     from .parallel import use_distributed
 
     dev = get_device(device)
-    if use_distributed(dev):
-        from .parallel.postbuild import distributed_class_gram
+    with record_function("ska::gram"):
+        gram_calls += 1
+        if use_distributed(dev):
+            from .parallel.postbuild import distributed_class_gram
 
-        return distributed_class_gram(variants, dev)
-    n = variants.shape[1]
-    compact, present, K, width, pad_class = compact_classes(variants)
-    Gc = gram_rows(compact, n, width, pad_class, K == width, dev)
-    return scatter_gram_16(Gc.cpu().numpy(), present, K, width, n)
+            return distributed_class_gram(variants, dev)
+        n = variants.shape[1]
+        compact, present, K, width, pad_class = compact_classes(variants)
+        Gc = gram_rows(compact, n, width, pad_class, K == width, dev)
+        return scatter_gram_16(Gc.cpu().numpy(), present, K, width, n)
 
 
 def gram_rows(compact: np.ndarray, n: int, width: int, pad_class: int,
@@ -150,6 +178,7 @@ def gram_rows(compact: np.ndarray, n: int, width: int, pad_class: int,
     (gram_chunk) and the chunk Grams sum on the device in int64. When the
     pad is a real class (pad_is_class: class 0, '-', when no slot is
     free), its counts are taken back out."""
+    global gram_chunks, gram_row_count, gram_onehot_width, gram_onehot_bytes
     S = compact.shape[0]
     # bound the one-hot scratch and keep chunks powers of two, at least
     # 1024 rows and no larger than the bucket that holds the data
@@ -158,6 +187,11 @@ def gram_rows(compact: np.ndarray, n: int, width: int, pad_class: int,
     chunk = 1 << int(np.floor(np.log2(chunk)))
     Gc = torch.zeros((n * width, n * width), dtype=torch.int64, device=dev)
     n_chunks = -(-S // chunk)
+    P = _onehot_cols(n, width)
+    gram_chunks += n_chunks
+    gram_row_count += n_chunks * chunk
+    gram_onehot_width = max(gram_onehot_width, P)
+    gram_onehot_bytes += n_chunks * chunk * P
     bar = None
     if n_chunks > 1:  # merge_ska_array.rs:421 distance progress analog
         from .progress import Bar

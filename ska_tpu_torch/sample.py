@@ -1,7 +1,8 @@
 """Sample builds: the device half of ska_tpu/sample.py's merged cohort
 build (build_samples_merged, build_samples_distributed) and of its
 per-sample dictionaries (build_sample, build_samples, dict_from_batch:
-the in-memory API of webapi.py), with the port's copies of their host
+webapi.py's SkaData maps through build_sample; its AlignData builds on
+the merged cohort route), with the port's copies of their host
 helpers.
 
 Host parsing, grouping by (padded length, reads, quality gates), the

@@ -11,13 +11,13 @@ one to where it launches its kernel, and nowhere else;
 ``launch_counts`` reads them all and ``reset_launch_counts`` zeroes them,
 and the radix kernels' sorts and rows (``sort_counts``), the chunked
 build's counters (``chunk_counts``), the merged build's
-(``merged_counts``) and the `.skf` writer's (``save_counts``) with
-them.
+(``merged_counts``), the class Gram's (``gram_counts``) and the
+`.skf` writer's (``save_counts``) with them.
 
 SKA_DISPATCH_STATS=1 (the counterpart of ska_tpu/jaxinit.py's switch)
 prints one stderr line when the process exits:
 
-    SKA_DISPATCH_STATS {"kernel_launches": N, "launches": {...}, "radix_sorts": {...}, "kernel_builds": B, "chunked": {...}, "merged": {...}, "save": {...}}
+    SKA_DISPATCH_STATS {"kernel_launches": N, "launches": {...}, "radix_sorts": {...}, "kernel_builds": B, "chunked": {...}, "merged": {...}, "gram": {...}, "save": {...}}
 
 ``launches`` is ``launch_counts()`` at exit and ``kernel_launches`` their
 sum: the hand-written kernels' launches, the port's counterpart of the
@@ -33,7 +33,10 @@ chunk is compacted on the device, so only its kept rows cross).
 ``merged`` is ``merged_counts()`` at exit: the merged build's batches
 copied out, their rows and the bytes those rows took from the device to
 the host (sample.py; a batch's ASCII, counts and presence are made on
-the device). ``save`` is ``save_counts()`` at exit: the `.skf` files
+the device). ``gram`` is ``gram_counts()`` at exit: the class Gram's
+calls, its int8 products, the site rows they took, the widest one-hot's
+columns and the one-hot bytes made (distance.py). ``save`` is
+``save_counts()`` at exit: the `.skf` files
 written, their snappy framing chunks, the most threads one save used
 and the keys written as tag-2 bignums (io/skf.py). Every compute module
 imports this one, so the CLI, webapi and graft_entry all report it. The line has the
@@ -105,6 +108,18 @@ def merged_counts() -> dict:
             "merged_copy_bytes": sample.merged_copy_bytes}
 
 
+def gram_counts() -> dict:
+    """The class Gram's counters since the last reset_launch_counts():
+    calls, chunks (one int8 product each), site rows with tail padding,
+    the widest one-hot's columns, and the one-hot bytes made."""
+    from . import distance
+
+    return {"calls": distance.gram_calls, "chunks": distance.gram_chunks,
+            "rows": distance.gram_row_count,
+            "onehot_width": distance.gram_onehot_width,
+            "onehot_bytes": distance.gram_onehot_bytes}
+
+
 def save_counts() -> dict:
     """The `.skf` writer's counters since the last reset_launch_counts():
     files written, their framing chunks, the most threads one save used,
@@ -116,7 +131,7 @@ def save_counts() -> dict:
 
 
 def reset_launch_counts():
-    from . import sample
+    from . import distance, sample
     from .io import skf
     from .ops import lookup, sort
 
@@ -126,6 +141,8 @@ def reset_launch_counts():
     sample.chunked_samples = sample.chunks = sample.chunk_rows = 0
     sample.chunk_copy_bytes = 0
     sample.merged_batches = sample.merged_rows = sample.merged_copy_bytes = 0
+    distance.gram_calls = distance.gram_chunks = distance.gram_row_count = 0
+    distance.gram_onehot_width = distance.gram_onehot_bytes = 0
     skf.saved_files = skf.save_chunks = skf.save_threads = 0
     skf.save_wide_keys = 0
 
@@ -138,7 +155,7 @@ def _print_dispatch_stats():
     stats = {"kernel_launches": sum(launches.values()), "launches": launches,
              "radix_sorts": sort_counts(), "kernel_builds": kernels.builds,
              "chunked": chunk_counts(), "merged": merged_counts(),
-             "save": save_counts()}
+             "gram": gram_counts(), "save": save_counts()}
     print("SKA_DISPATCH_STATS " + json.dumps(stats), file=sys.stderr)
 
 

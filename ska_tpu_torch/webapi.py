@@ -12,14 +12,21 @@ The reference ships a browser build exposing two wasm-bindgen structs:
   and a canonical neighbor-joining tree in Newick form (the reference
   delegates NJ to the speedytree crate, ska_align.rs:104-110).
 
-Here they are plain Python classes over the port's per-sample build
-(sample.build_sample / build_samples: one device pass a sample, or a
-batch of same-length samples row by row, every sort on the radix
-kernel) and its RefSka (the reference scan and the lookup on the
-device). Inputs are file paths; outputs are the same JSON documents,
-key for key, as the JAX package's. Both classes take ``device=``
-(resolved by torchinit.get_device: the card unless the caller asks for
-the CPU).
+Here they are plain Python classes. ``SkaData`` maps over the port's
+per-sample build (sample.build_sample: one device pass, every sort on
+the radix kernel) and its RefSka (the reference scan and the lookup on
+the device). ``AlignData`` builds on the cohort path of ``ska build``
+(sample.build_samples_merged, then api.assemble's union) and takes its
+SNP distances from ``ska distance``'s class Gram (distance.class_gram).
+Inputs are file paths; outputs are the same JSON documents, byte for
+byte, as the JAX package's. Both classes take ``device=`` (resolved by
+torchinit.get_device: the card unless the caller asks for the CPU).
+
+Each call runs in the span ``ska::call``. Inside it an align call runs
+the build's spans (``ska::parse``, ``ska::stage``, ``ska::to_device``,
+``ska::device_pass``, ``ska::to_host``), ``ska::union``, ``ska::gram``,
+``ska::nj`` (neighbor joining) and ``ska::doc`` (the alignment's FASTA
+and the JSON document).
 
 Known divergence, by design (as in the JAX package): the reference's
 >=3-fastq pairing loop (lib.rs:1309-1384) indexes its index list with
@@ -38,12 +45,13 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 from torch.profiler import record_function
 
-from .array import _combine128
+from .api import assemble
 from .constants import QUAL_NOFILTER
+from .distance import class_gram
 from .merge import merge_samples
 from .ref import RefSka
-from .sample import build_sample, build_samples
-from .sampletypes import QualOpts, SampleDict
+from .sample import build_sample, build_samples_merged
+from .sampletypes import QualOpts
 from .torchinit import get_device
 
 __all__ = ["SkaData", "AlignData", "neighbor_joining"]
@@ -228,20 +236,22 @@ class SkaData:
         return "\n".join(self.reference_string)
 
 
-def _pair_mismatches(a: SampleDict, b: SampleDict) -> int:
-    """Shared-k-mer base mismatches between two sample dicts — the inner
-    loop of ska_align.rs:90-98 over sorted arrays instead of hashmaps.
-    Middle bases are stored as 4-bit IUPAC sets which map 1:1 to the
-    reference's ASCII codes, so set inequality == byte inequality."""
-    if a.keys.shape[1] == 1:
-        ka, kb = a.keys[:, 0], b.keys[:, 0]
-    else:
-        ka, kb = _combine128(a.keys), _combine128(b.keys)
-    if len(kb) == 0 or len(ka) == 0:
-        return 0
-    idx = np.clip(np.searchsorted(kb, ka), 0, len(kb) - 1)
-    hit = kb[idx] == ka
-    return int(np.count_nonzero(a.sets[hit] != b.sets[idx[hit]]))
+# split k-mers both samples hold with different middle bases: the pairs
+# of classes a != b, neither of them the gap '-' (class 0)
+_CLASS = np.arange(16)
+_DIFFERING = ((_CLASS[:, None] != _CLASS) & (_CLASS[:, None] > 0)
+              & (_CLASS > 0)).astype(np.int64)
+
+
+def snp_distances(variants: np.ndarray, device=None) -> np.ndarray:
+    """The (n, n) int64 SNP distance matrix of ska_align.rs:90-98 over a
+    merged (rows, n) variants matrix: for each pair of samples the rows
+    where both hold a base and the letters differ. Letters are the
+    IUPAC codes of 4-bit base sets, one class each, so that is the sum
+    of the class Gram's G[i, a, j, b] over a != b, both not '-'."""
+    n = variants.shape[1]
+    G = class_gram(variants, device).reshape(n, 16, n, 16)
+    return np.einsum("iajb,ab->ij", G, _DIFFERING)
 
 
 class AlignData:
@@ -254,11 +264,13 @@ class AlignData:
         self.device = get_device(device)
         self.file_names: List[str] = []
         self._inputs: List[Tuple[str, str, Optional[str]]] = []
-        # built sample dicts, aligned with _inputs: the reference builds
-        # each added file once and accumulates the dicts
-        # (lib.rs:1205-1384 get_queries), so repeated align() calls must
-        # not re-read and re-build previously added samples
-        self._built: List[SampleDict] = []
+        # the merged build's batch results of the files built so far, their
+        # input indices counted over all calls: the reference builds each
+        # added file once and accumulates the dicts (lib.rs:1205-1384
+        # get_queries), so repeated align() calls must not re-read and
+        # re-build previously added samples
+        self._batches: list = []
+        self._n_built = 0
 
     def _add(self, f1: str, f2: Optional[str] = None):
         name = os.path.basename(f1)
@@ -304,32 +316,32 @@ class AlignData:
                 results["names"] = list(self.file_names)
                 return json.dumps(results)
 
-            if len(self._built) < len(self._inputs):
-                # build only this call's new files (proportion_reads applies
-                # to them alone, as in the reference where each align() call
-                # builds just the files it was handed)
-                self._built.extend(build_samples(
-                    self._inputs[len(self._built):], self.k, True,
-                    _NOFILTER_QUAL, proportion_reads, device=self.device,
-                ))
-            samples = self._built
-            buf = io.BytesIO()
-            merge_samples(samples).write_fasta(buf)  # unfiltered, lib.rs:1407-1421
-            alignment = buf.getvalue().decode()
-
-            m = len(samples)
-            dist = np.zeros((m, m), dtype=np.int64)
-            for i in range(m):
-                for j in range(i + 1, m):
-                    d = _pair_mismatches(samples[i], samples[j])
-                    dist[i, j] = dist[j, i] = d
+            if self._n_built < len(self._inputs):
+                # build only the files not built yet (proportion_reads
+                # applies to them alone, as in the reference where each
+                # align() call builds just the files it was handed)
+                base = self._n_built
+                batches = build_samples_merged(
+                    self._inputs[base:], self.k, True, _NOFILTER_QUAL,
+                    proportion_reads, device=self.device,
+                )
+                self._batches.extend(([base + i for i in idx], *rest)
+                                     for idx, *rest in batches)
+                self._n_built = len(self._inputs)
+            arr = assemble(self._batches, self.k, True)
+            dist = snp_distances(arr.variants, self.device)
             clean = [_clean_name(n) for n in self.file_names]
+            with record_function("ska::nj"):
+                newick = neighbor_joining(dist, clean)
 
-            results = {}
-            results["newick"] = neighbor_joining(dist, clean)
-            results["names"] = list(self.file_names)
-            results["alignment"] = alignment
-            return json.dumps(results)
+            with record_function("ska::doc"):
+                buf = io.BytesIO()
+                arr.write_fasta(buf)  # unfiltered, lib.rs:1407-1421
+                results = {}
+                results["newick"] = newick
+                results["names"] = list(self.file_names)
+                results["alignment"] = buf.getvalue().decode()
+                return json.dumps(results)
 
     def get_size(self) -> int:
         return len(self._inputs)

@@ -11,8 +11,8 @@ SKA_DISPATCH_STATS):
 - SKA_DISPATCH_STATS=1: one stderr line at exit that
   scripts/bench_cmds.py's _STATS_RE reads, with the hand-written
   kernels' launches and sorts (none on the CPU), the compiler runs of
-  the process and the .skf writer's files, chunks, threads and bignum
-  keys; none and no exit
+  the process, the class Gram's calls, products, rows and one-hot, and
+  the .skf writer's files, chunks, threads and bignum keys; none and no exit
   hook without it. `kernels.builds` counts a compiler
   run and no up-to-date library.
 """
@@ -105,6 +105,8 @@ SPANS = {
     "map_aln": {"ska::scan", "ska::lookup", "ska::pseudoalign", "ska::aln",
                 "ska::command", "ska::load"},
     "weed": {"ska::scan"},
+    # the class Gram, ska distance's kernel (distance.py)
+    "distance": {"ska::command", "ska::load", "ska::gram"},
 }
 
 
@@ -205,7 +207,9 @@ def test_dispatch_stats_line(inputs, tmp_path, switch):
     assert len(lines) == 1
     stats = json.loads(stats_re.search(lines[0]).group(1))
     assert set(stats) == {"kernel_launches", "launches", "radix_sorts",
-                          "kernel_builds", "chunked", "merged", "save"}
+                          "kernel_builds", "chunked", "merged", "gram", "save"}
+    assert stats["gram"] == {"calls": 0, "chunks": 0, "rows": 0,
+                             "onehot_width": 0, "onehot_bytes": 0}
     assert stats["launches"] == {"radix_sort": 0, "lower_bound": 0}
     assert stats["radix_sorts"] == {}
     assert stats["chunked"] == {"chunked_samples": 0, "chunks": 0,
@@ -245,6 +249,30 @@ def test_dispatch_stats_count_chunks(inputs, tmp_path, monkeypatch):
     assert want["chunked_samples"] == 1 and want["chunks"] >= 3
     assert want["chunk_copy_bytes"] == want["chunk_rows"] * (16 + 4) > 0
     assert stats["chunked"] == want
+
+
+def test_dispatch_stats_count_the_gram(inputs, tmp_path):
+    """`distance` prints, under SKA_DISPATCH_STATS=1, the class Gram's
+    counters that the same Gram counts in process: one call, its int8
+    products, their rows (a power of two a chunk), the one-hot's columns
+    and its bytes, rows x columns."""
+    from ska_tpu_torch import distance, torchinit
+
+    argv = ["distance", inputs["skf"], "-o", str(tmp_path / "d.tsv")]
+    r = _port(argv, SKA_DISPATCH_STATS="1")
+    assert r.returncode == 0, r.stderr.decode()[-2000:]
+    (line,) = [ln for ln in r.stderr.splitlines() if _stats_re().search(ln)]
+    stats = json.loads(_stats_re().search(line).group(1))
+    torchinit.reset_launch_counts()
+    cli.main(argv + ["--device", "cpu"])
+    want = torchinit.gram_counts()
+    assert want["calls"] == 1 and want["chunks"] >= 1
+    assert want["rows"] % want["chunks"] == 0 and want["rows"] >= 1024
+    assert want["onehot_width"] % 8 == 0 and want["onehot_width"] >= 3 * 4
+    assert want["onehot_bytes"] == want["rows"] * want["onehot_width"]
+    assert stats["gram"] == want
+    torchinit.reset_launch_counts()
+    assert distance.gram_calls == distance.gram_onehot_bytes == 0
 
 
 def test_dispatch_stats_count_the_save(tmp_path):
@@ -405,14 +433,40 @@ def test_webapi_call_encloses_its_steps(inputs, tmp_path, query):
     assert {s[0] for s in _inside(spans, calls[0])} - {"ska::compile"} == CALL_SPANS
 
 
+# the merged build's, the union's, the Gram's, neighbor joining's and
+# the document's spans in a browser align call
+ALIGN_CALL_SPANS = {"ska::parse", "ska::stage", "ska::to_device",
+                    "ska::device_pass", "ska::to_host", "ska::union",
+                    "ska::gram", "ska::nj", "ska::doc"}
+
+
+@pytest.mark.parametrize("files", ["fasta", "fasta_and_pair"])
+def test_align_call_encloses_its_steps(inputs, tmp_path, files):
+    """AlignData.align runs in one ska::call span that holds, on its
+    thread, every step of the call: the merged build, the union, the
+    class Gram, neighbor joining and the document."""
+    from ska_tpu_torch.webapi import AlignData
+
+    ad = AlignData(k=17, device="cpu")
+    paths = inputs["samples"] + (list(inputs["fastq"]) if files != "fasta" else [])
+    spans = _profile_spans(lambda: ad.align(paths), tmp_path)
+    calls = [s for s in spans if s[0] == "ska::call"]
+    assert len(calls) == 1
+    inside = _inside(spans, calls[0])
+    assert {s[0] for s in inside} - {"ska::compile"} == ALIGN_CALL_SPANS
+    assert sum(s[0] == "ska::gram" for s in inside) == 1
+
+
 # the spans whose self times the benchmark reads: nothing may nest in
 # them, or their metrics would shrink
 SELF_TIMED = ("ska::parse", "ska::stage", "ska::to_device", "ska::device_pass",
-              "ska::to_host", "ska::union", "ska::save", "ska::vcf", "ska::aln")
+              "ska::to_host", "ska::union", "ska::save", "ska::vcf", "ska::aln",
+              "ska::gram", "ska::nj", "ska::doc")
 
 
 @pytest.mark.parametrize("path", ["build_fasta", "build_fastq", "map_vcf",
-                                  "map_aln", "webapi_map", "build_fastq_chunked"])
+                                  "map_aln", "webapi_map", "build_fastq_chunked",
+                                  "webapi_align"])
 def test_no_span_nests_in_a_self_timed_span(inputs, tmp_path, monkeypatch,
                                             capsys, path):
     """On the benchmark's six paths, no span but ska::compile opens
@@ -428,6 +482,11 @@ def test_no_span_nests_in_a_self_timed_span(inputs, tmp_path, monkeypatch,
 
         sd = SkaData(inputs["ref"], k=17, device="cpu")
         spans = _profile_spans(lambda: sd.map(inputs["samples"][0]), tmp_path)
+    elif path == "webapi_align":
+        from ska_tpu_torch.webapi import AlignData
+
+        ad = AlignData(k=17, device="cpu")
+        spans = _profile_spans(lambda: ad.align(inputs["samples"]), tmp_path)
     else:
         os.makedirs(out)
         if path in ("build_fastq", "build_fastq_chunked"):

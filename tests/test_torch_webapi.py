@@ -8,9 +8,12 @@
   merge.py ``merge_samples``: arrays equal, error messages equal;
 - webapi.py: ``neighbor_joining`` on random matrices and the file-name
   helpers; ``SkaData.map`` (a two-record reference, repeated maps, a gz
-  FASTQ pair, k=41) and ``get_reference``; ``AlignData.align`` (too few
-  samples, FASTA, the build cache across calls, FASTQ pairing, k=41):
-  the JSON strings equal;
+  FASTQ pair, k=41) and ``get_reference``; ``AlignData.align`` on the
+  merged build and the class Gram (too few samples, FASTA at k=17, 31,
+  41 and 63, the build cache across calls, a two-call session with
+  subsampled pairs, FASTQ pairing, an all-N file's error): the JSON
+  strings equal; ``snp_distances`` against a direct pairwise count,
+  the Gram's tail padding included;
 - graft_entry.py: ``entry()``'s step equal to ``__graft_entry__``'s on
   the same arrays, ``dryrun_multichip`` on two gloo ranks returning the
   JAX ``dryrun_step``'s row count; with no ``device=`` every entry point
@@ -345,7 +348,7 @@ def test_aligndata_not_enough_matches_jax(cohort):
     assert got.get_size() == want.get_size() == 3
 
 
-@pytest.mark.parametrize("k", [17, 41])
+@pytest.mark.parametrize("k", [17, 31, 41, 63])
 def test_aligndata_fasta_matches_jax(cohort, k):
     files = cohort["fasta"]
     g = tweb.AlignData(k=k, device="cpu").align(files)
@@ -353,22 +356,104 @@ def test_aligndata_fasta_matches_jax(cohort, k):
     assert list(json.loads(g)) == ["newick", "names", "alignment"]
 
 
-def test_aligndata_incremental_matches_jax(cohort, monkeypatch):
-    """The second call builds only its new files (the build cache)."""
+def _count_builds(monkeypatch):
+    """The names of the files each merged build of AlignData is handed,
+    one list a build."""
     built = []
-    real = tweb.build_samples
+    real = tweb.build_samples_merged
 
     def counting(inputs, *a, **kw):
         built.append([name for name, _, _ in inputs])
         return real(inputs, *a, **kw)
 
-    monkeypatch.setattr(tweb, "build_samples", counting)
+    monkeypatch.setattr(tweb, "build_samples_merged", counting)
+    return built
+
+
+def test_aligndata_incremental_matches_jax(cohort, monkeypatch):
+    """The second call builds only its new files (the build cache), on
+    the merged route; its batches' columns follow the earlier ones."""
+    built = _count_builds(monkeypatch)
     got = tweb.AlignData(k=17, device="cpu")
     want = jweb.AlignData(k=17)
     for files in (cohort["fasta"][:3], cohort["fasta"][3:], cohort["pairs"][2]):
         assert got.align(files) == want.align(files)
     assert built == [["sample0.fa", "sample1.fa", "sample2.fa"],
                      ["sample3.fa", "sample4.fa"], ["reads2_1.fastq"]]
+
+
+@pytest.mark.parametrize("k", [17, 31, 63])
+def test_aligndata_session_matches_jax(cohort, monkeypatch, k):
+    """Two calls of one session at each key width: FASTA with IUPAC
+    letters and an N run (sample1) and a subsampled FASTQ pair, then
+    more FASTA and another pair at another proportion. Each document
+    equal to the JAX package's; the second call builds only its files,
+    and the class Gram runs once a call."""
+    from ska_tpu_torch import distance
+
+    built = _count_builds(monkeypatch)
+    monkeypatch.setattr(distance, "gram_calls", 0)
+    got = tweb.AlignData(k=k, device="cpu")
+    want = jweb.AlignData(k=k)
+    calls = [(cohort["fasta"][:3] + cohort["pairs"][0], 0.5),
+             (cohort["pairs"][1] + cohort["fasta"][3:], 0.8)]
+    for files, prop in calls:
+        g = got.align(files, proportion_reads=prop)
+        assert g == want.align(files, proportion_reads=prop)
+    assert built == [["sample0.fa", "sample1.fa", "sample2.fa",
+                      "reads0_1.fastq.gz"],
+                     ["sample3.fa", "sample4.fa", "reads1_1.fastq"]]
+    assert distance.gram_calls == 2
+    doc = json.loads(g)
+    assert doc["names"] == built[0] + built[1]
+    assert doc["alignment"].count(">") == 7
+
+
+def test_aligndata_no_valid_sequence_matches_jax(cohort):
+    """An all-N file stops the call with the JAX package's message."""
+    files = cohort["fasta"][:2] + [cohort["empty"]]
+    with pytest.raises(ValueError) as want:
+        jweb.AlignData(k=17).align(files)
+    with pytest.raises(ValueError) as got:
+        tweb.AlignData(k=17, device="cpu").align(files)
+    assert str(got.value) == str(want.value)
+    assert "has no valid sequence" in str(got.value)
+
+
+def _direct_mismatches(variants):
+    """Pairwise rows where both samples hold a base and the letters
+    differ, one pair at a time."""
+    n = variants.shape[1]
+    out = np.zeros((n, n), np.int64)
+    for i in range(n):
+        for j in range(n):
+            a, b = variants[:, i], variants[:, j]
+            out[i, j] = np.count_nonzero((a != ord("-")) & (b != ord("-")) & (a != b))
+    return out
+
+
+# (letters drawn, samples, rows, one-hot scratch bytes): '-ACG' gives
+# four classes with the gap among them, so the tail pads with '-' and its
+# counts come back out; the others leave a free pad slot, or use all 16
+@pytest.mark.parametrize("letters,n,rows,scratch", [
+    ("-ACG", 5, 3000, 1 << 14),
+    ("-ACGT", 7, 2500, 1 << 15),
+    ("-ACGTRN", 3, 5000, 1 << 28),
+    ("-ACGTMRWSYKVHDBN", 9, 4100, 1 << 16),
+    ("ACGT", 4, 1500, 1 << 13),
+])
+def test_snp_distances_match_a_direct_count(monkeypatch, letters, n, rows, scratch):
+    from ska_tpu_torch import distance
+
+    rng = np.random.default_rng(rows + n)
+    alphabet = np.frombuffer(letters.encode(), np.uint8)
+    variants = alphabet[rng.integers(0, len(alphabet), (rows, n))]
+    monkeypatch.setattr(distance, "GRAM_SCRATCH_BYTES", scratch)
+    monkeypatch.setattr(distance, "gram_chunks", 0)
+    got = tweb.snp_distances(variants, "cpu")
+    assert got.dtype == np.int64
+    assert np.array_equal(got, _direct_mismatches(variants))
+    assert distance.gram_chunks >= 1 + (scratch < (1 << 20))
 
 
 def test_aligndata_fastq_pairing_matches_jax(cohort):
